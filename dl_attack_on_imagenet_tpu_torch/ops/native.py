@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``. The
+libraries land in ``.kernel_build/`` beside the package (listed in
+``.gitignore``), named by a hash of the source and the flags, so a changed
+source is rebuilt and an unchanged one is reused. Nothing is built at
+import: the first call that launches a kernel builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / ".kernel_build"
+SOURCES = ("fused_perturb",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES, ptxas_info: bool = False) -> Dict[str, str]:
+    """Compile every library of ``names`` that is not built yet.
+
+    One ``nvcc`` per source, all started together. Returns each compiler's
+    output by name (with ``ptxas_info``, the registers, shared memory and
+    spills of each kernel). Raises if any compile fails.
+    """
+    names = list(names)
+    BUILD_DIR.mkdir(exist_ok=True)
+    procs = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS]
+        if ptxas_info:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    outputs = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        outputs[name], _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed for {name}.cu:\n{outputs[name]}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outputs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        return lib
