@@ -8,16 +8,27 @@ phase, and exits non-zero if any phase fails:
 1. requires CUDA and prints the card's name and power limit;
 2. builds every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints what ``ptxas`` reports;
-3. holds each kernel against its plain torch twin on the card;
-4. checks the served path against the plain path on the CPU at a small size;
+3. holds each kernel against its plain torch twin on the card, and times
+   it beside its bound, its twin and, where there is one, a PyTorch call;
+4. checks the served path and three training steps against the plain path
+   on the CPU at a small size;
 5. serves ADiL on ResNet-50 at 224x224, K=100 atoms, batch 64, eps 8/255
    l∞, CW loss: supervised DDrague, unsupervised best-of-trials sampling and
    supervised AdamW on the codes, each through the ``ADIL`` entry points,
    with seeded random weights and a seeded random dictionary; each mode is
    timed after a warm-up, then traced once with torch.profiler to print
    where its device time goes;
-6. prints one ``{"kernels": [...]}`` line, then the result line
+6. trains ADiL at the same configuration: one warm-up step, then 10 steps
+   chained on one batch of 64 (the step ``bench.py`` times), timed and then
+   traced; then each ``learn_dictionary`` path through the ``ADIL``
+   constructor on 128 images: ``gd`` resident for 2 epochs with a
+   checkpoint after each, ``gd`` streamed from the host for 1 epoch, and
+   ``alter`` for 1 round;
+7. prints one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
+
+Each path runs with the kernels' launch counts set to 0 just before it, and
+fails if a kernel of that path was not launched as often as the path must.
 
 Precision: matmuls and cuDNN convolutions both run in true fp32 here
 (``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -53,13 +64,26 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(bytes_moved: float, flops: float):
+    """(ms, "bytes" | "operations"): the larger of the HBM time of the bytes
+    and the fp32 time of the operations on an H100 SXM."""
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def fused_perturb_bound_ms(n: int, k: int, m: int):
     """Least time for the function on an H100 SXM: each input read once and
     the output written once at the HBM rate, against its fp32 FMAs at the
     fp32 rate. Returns (ms, "bytes" | "operations")."""
-    bytes_ms = 4 * (n * k + k * m + 2 * n * m) / H100_BYTES_PER_S * 1e3
-    ops_ms = 2 * n * k * m / H100_FP32_FLOP_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return _bound(4 * (n * k + k * m + 2 * n * m), 2 * n * k * m)
+
+
+def fused_adamw_project_bound_ms(n: int):
+    """Least time for one AdamW step and clamp over n fp32 elements: read p,
+    g, mu, nu and write p, mu, nu once, against 17 operations an element
+    (7 for the moments, 4 for the update, 4 for the step, 2 for the clamp)."""
+    return _bound(7 * 4 * n, 17 * n)
 
 
 def check_fused_perturb(dev) -> dict:
@@ -117,6 +141,62 @@ def check_fused_perturb(dev) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def check_fused_adamw_project(dev) -> dict:
+    """Kernel against its plain twin at the dictionary's size (steps 1, 2 and
+    100, clamp 1 and none), then times: the kernel, the twin, and torch's
+    fused AdamW step followed by the clamp as the library yardstick."""
+    from dl_attack_on_imagenet_tpu_torch.ops import (
+        fused_adamw_project, fused_adamw_project_reference)
+
+    n = 100 * 224 * 224 * 3
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs():
+        return (torch.rand((n,), generator=g, device=dev) * 2.4 - 1.2,
+                torch.randn((n,), generator=g, device=dev),
+                torch.randn((n,), generator=g, device=dev) * 0.1,
+                torch.rand((n,), generator=g, device=dev) * 0.01)
+
+    max_err = 0.0
+    for step in (1, 2, 100):
+        for clip in (1.0, float("inf")):
+            p, grad, mu, nu = inputs()
+            want = fused_adamw_project_reference(p, grad, mu, nu, step, 0.01, clip_val=clip)
+            fused_adamw_project(p, grad, mu, nu, step, 0.01, clip)
+            torch.cuda.synchronize()
+            errs = [float((p - want[0]).abs().max()), float((mu - want[1]).abs().max()),
+                    float(((nu - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max())]
+            print(f"fused_adamw_project [n={n} step={step} clip={clip}]: max_abs_err p "
+                  f"{errs[0]:.3e} mu {errs[1]:.3e}, nu max_rel_err {errs[2]:.3e} (tol 1e-6)")
+            if not max(errs) <= 1e-6:
+                raise AssertionError(f"fused_adamw_project disagrees with its twin: {errs}")
+            max_err = max(max_err, errs[0], errs[1])
+
+    p, grad, mu, nu = inputs()
+    ms = _time_ms(lambda: fused_adamw_project(p, grad, mu, nu, 2, 0.01, 1.0))
+    plain_ms = _time_ms(lambda: fused_adamw_project_reference(p, grad, mu, nu, 2, 0.01))
+    lib_p = p.clone().requires_grad_(True)
+    lib_p.grad = grad
+    opt = torch.optim.AdamW([lib_p], lr=0.01, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-2, fused=True)
+
+    def library():
+        opt.step()
+        with torch.no_grad():
+            lib_p.clamp_(-1.0, 1.0)
+
+    library_ms = _time_ms(library)
+    bound_ms, bound_by = fused_adamw_project_bound_ms(n)
+    print(f"fused_adamw_project at n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), library {library_ms:.4f} ms (two calls: "
+          "torch.optim.AdamW(fused=True).step() then clamp_)")
+    return {"name": "fused_adamw_project", "route": "cuda",
+            "source": "dl_attack_on_imagenet_tpu_torch/csrc/fused_adamw_project.cu",
+            "replaces": "dl_attack_on_imagenet_tpu/ops/pallas_kernels.py:164",
+            "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 def check_small_against_cpu(dev) -> None:
     """The served path on the card against the plain path on the CPU, on the
     tiny victim at a small size (atol 1e-4 after 5 AdamW steps: cuDNN and
@@ -147,6 +227,38 @@ def check_small_against_cpu(dev) -> None:
             raise AssertionError(f"{name} on the card disagrees with the CPU: {err}")
 
 
+def check_train_small_against_cpu(dev) -> None:
+    """Three joint training steps on the card against the CPU on the tiny
+    victim (atol 1e-4: cuDNN sums in another order than the CPU, and AdamW
+    divides by small second moments)."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+
+    cpu = torch.device("cpu")
+    victim_cpu = create_model("tiny", device=cpu, seed=1)
+    victim_dev = create_model("tiny", device=dev, state_dict=victim_cpu.net.state_dict())
+    cfg = core.AdilConfig(n_atoms=8, loss="logits")
+    g = torch.Generator().manual_seed(2)
+    images = torch.rand((6, 32, 32, 3), generator=g)
+    state_cpu = core.init_state(g, (32, 32, 3), 6, cfg)
+    state_dev = core.TrainState(**{k: (v.to(dev) if torch.is_tensor(v) else v)
+                                   for k, v in vars(state_cpu).items()})
+    labels = core.predict_labels(victim_cpu, images)
+    idx, mask = torch.tensor([3, 0, 5, 0]), torch.tensor([1.0, 1.0, 1.0, 0.0])
+    losses = []
+    for state, victim, d in ((state_cpu, victim_cpu, cpu), (state_dev, victim_dev, dev)):
+        step = core.make_train_step(victim, cfg, "both")
+        losses.append([float(step(state, images[idx].to(d), labels[idx].to(d),
+                                  idx.to(d), mask.to(d))[0]) for _ in range(3)])
+    torch.cuda.synchronize()
+    err = max(float((state_dev.d.cpu() - state_cpu.d).abs().max()),
+              float((state_dev.v.cpu() - state_cpu.v).abs().max()),
+              max(abs(a - b) for a, b in zip(*losses)))
+    print(f"small-size training: 3 steps, card vs CPU max_abs_err {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"training on the card disagrees with the CPU: {err}")
+
+
 def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
     """Trace one more run of ``fn`` with torch.profiler and print where the
     device time goes: the sum of kernel times against the untraced run's
@@ -164,12 +276,21 @@ def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
         print(f"profile {mode}: the profiler traced no device time")
         return
     kernels.sort(key=lambda row: -row[1])
-    perturb_ms = sum(ms for key, ms, _ in kernels if "fused_perturb" in key)
+    ours = "; ".join(
+        f"{name} {ms:.3f} ms ({ms / total_ms:.2%})"
+        for name in ("fused_perturb", "fused_adamw_project")
+        for ms in [sum(ms for key, ms, _ in kernels if name in key)])
     print(f"profile {mode}: kernels {total_ms:.1f} ms on the device in a "
-          f"{wall_s * 1e3:.1f} ms run (busy {total_ms / (wall_s * 1e3):.1%}); "
-          f"fused_perturb {perturb_ms:.3f} ms ({perturb_ms / total_ms:.2%})")
+          f"{wall_s * 1e3:.1f} ms run (busy {total_ms / (wall_s * 1e3):.1%}); {ours}")
     for key, ms, count in kernels[:top]:
         print(f"    {ms / total_ms:6.1%} {ms:9.2f} ms x{count:<5d} {key[:90]}")
+
+
+def _zero_counts() -> None:
+    """Set every kernel's launch count to 0, just before a path runs."""
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+
+    fused_perturb.launches = fused_adamw_project.launches = 0
 
 
 def serve(dev) -> int:
@@ -199,7 +320,7 @@ def serve(dev) -> int:
             run = attack.forward_supervised_adamw if mode == "supervised_adamw" else attack
             run(images)  # warm-up
             torch.cuda.synchronize()
-            fused_perturb.launches = 0
+            _zero_counts()
             t0 = time.perf_counter()
             adv = run(images)
             torch.cuda.synchronize()
@@ -225,6 +346,111 @@ def serve(dev) -> int:
     return total_launches
 
 
+def _check_trained(name: str, d, v, eps: float) -> None:
+    """D inside [-1, 1] and each code row inside the eps l1 ball, finite."""
+    d_max = float(d.abs().max())
+    v_l1 = float(v.abs().sum(1).max())
+    print(f"  {name}: |D|_max {d_max:.6f}, max row |v|_1 {v_l1:.6f} (eps {eps:.6f})")
+    if not (torch.isfinite(d).all() and torch.isfinite(v).all()):
+        raise AssertionError(f"{name}: non-finite state")
+    if not (d_max <= 1.0 and v_l1 <= eps + 1e-6):
+        raise AssertionError(f"{name}: D or v left its constraint set")
+
+
+def train(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100) -> int:
+    """ADiL training on ResNet-50, the step bench.py times: a warm-up step,
+    then 10 steps chained on one batch, timed and then traced. Returns the
+    fused_adamw_project launches of the timed run. (The keyword arguments
+    shrink the run for a rehearsal on the CPU.)"""
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project
+
+    n_steps = 10
+    victim = create_model(model, device=dev, seed=0)
+    cfg = core.AdilConfig(eps=EPS, norm="linf", n_atoms=k, loss="logits", kappa=50.0,
+                          step_size=0.01, batch_size=n)
+    g = torch.Generator(device=dev).manual_seed(1)
+    images = torch.rand((n, size, size, 3), generator=g, device=dev)
+    state = core.init_state(g, (size, size, 3), n, cfg)
+    labels = core.predict_labels(victim, images)
+    idx = torch.arange(n, device=dev)
+    mask = torch.ones(n, device=dev)
+    step = core.make_train_step(victim, cfg, "both")
+    step(state, images, labels, idx, mask)  # warm-up
+    scan = core.make_train_scan(victim, cfg, "both", n_steps=n_steps)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses, foolings = scan(state, images, labels, idx, mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_adamw_project.launches
+    print(f"train gd step on {model} at b{n} K={k} {size}x{size}: {wall / n_steps * 1e3:.2f} ms/step, "
+          f"{n_steps / wall:.2f} it/s over {n_steps} chained steps, fused_adamw_project "
+          f"launches {launches}; loss {losses[0]:.4f} -> {losses[-1]:.4f}, fooling "
+          f"{int(foolings[-1])}/{n}")
+    if launches != 2 * n_steps:
+        raise AssertionError(f"train: {launches} launches in {n_steps} steps, not 2 a step")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("train: non-finite loss")
+    _check_trained("train", state.d, state.v, EPS)
+    print_device_breakdown("train step", lambda: step(state, images, labels, idx, mask),
+                           wall / n_steps)
+    return launches
+
+
+def learn_entry_points(dev, model: str = "resnet50", size: int = 224, n: int = 128,
+                       b: int = 64, k: int = 100) -> int:
+    """Each learn_dictionary path through the ADIL constructor on 128 images
+    at the training configuration. Returns the fused_adamw_project launches
+    of the three runs."""
+    import numpy as np
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    victim = create_model(model, device=dev, seed=0)
+    rs = np.random.default_rng(2)
+    data = (rs.random((n, size, size, 3), dtype=np.float32), np.zeros((n,), np.int64))
+    runs = [  # (name, ADIL options, launches the path must make)
+        ("gd resident, 2 epochs", dict(steps=2, stream=False), 2 * 2 * (n // b)),
+        ("gd streamed, 1 epoch", dict(steps=1, stream=True), 2 * (n // b)),
+        ("alter, 1 round", dict(steps=1, method="alter"), 2 * (n // b)),
+    ]
+    total = 0
+    for name, options, want in runs:
+        with tempfile.TemporaryDirectory() as root:
+            cache = ArtifactCache(root)
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            attack = ADIL(victim, eps=EPS, n_atoms=k, batch_size=b, loss="logits",
+                          data_train=data, cache=cache, checkpoint_every=1, seed=0,
+                          **options)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fused_adamw_project.launches
+            history = attack.history["loss"]
+            print(f"learn_dictionary {name}: wall {wall:.2f} s, fused_adamw_project "
+                  f"launches {launches}, loss {history}, fooling "
+                  f"{attack.history['fooling_rate']}, timing {attack.timing}")
+            if launches != want:
+                raise AssertionError(f"{name}: {launches} launches, the path makes {want}")
+            if not (history and all(np.isfinite(history))):
+                raise AssertionError(f"{name}: bad loss history {history}")
+            saved = cache.load("ImageNet", model=victim.name)
+            if saved is None or saved["d"].shape != (k, size, size, 3):
+                raise AssertionError(f"{name}: no artifact of the right shape")
+            if cache.exists("ImageNet", model=victim.name, kind="train_state_torch"):
+                raise AssertionError(f"{name}: the train state was not cleared")
+            _check_trained(name, torch.as_tensor(saved["d"]), torch.as_tensor(saved["v"]), EPS)
+            total += launches
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -245,9 +471,11 @@ def main() -> None:
     for name, out in native.build(native.SOURCES, ptxas_info=True).items():
         print(f"built {name} ({time.perf_counter() - t0:.1f} s)\n{out.strip()}")
 
-    kernels = [check_fused_perturb(dev)]
+    kernels = [check_fused_perturb(dev), check_fused_adamw_project(dev)]
     check_small_against_cpu(dev)
+    check_train_small_against_cpu(dev)
     kernels[0]["launches"] = serve(dev)
+    kernels[1]["launches"] = train(dev) + learn_entry_points(dev)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

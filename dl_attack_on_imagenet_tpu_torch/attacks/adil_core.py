@@ -1,28 +1,41 @@
-"""ADiL functional core, serving half: attacks with a frozen dictionary.
+"""ADiL functional core: dictionary learning and attacks with a frozen
+dictionary.
 
-Port of the inference half of ``dl_attack_on_imagenet_tpu/attacks/adil_core.py``.
-A ``model`` here is any callable from NHWC [0, 1] images to logits, such as
-a ``VictimModel``. JAX's ``while_loop``/``scan`` become Python loops; the
-early stop on ``max|Δ| < tol`` reads one scalar back to the host per step.
+Port of ``dl_attack_on_imagenet_tpu/attacks/adil_core.py``. A ``model`` here
+is any callable from NHWC [0, 1] images to logits, such as a
+``VictimModel``. JAX's ``while_loop``/``scan`` become Python loops.
 
-Every adversary that leaves a solver goes through the ``fused_perturb``
-kernel: once per unsupervised trial, and once for each supervised solver's
-final read-off with ``eps = inf`` (``clip(x + D v, 0, 1)``). The in-loop
-forwards need gradients and stay plain torch, as the kernel has no backward.
+Training. The state (:class:`TrainState`) holds D flat ``(K, H*W*C)`` in
+NHWC pixel order, the codes v, and AdamW moments for each; a step updates
+it in place, as JAX's donated state is updated. Both halves of every update
+go through the ``fused_adamw_project`` kernel: AdamW, then the clamp to
+±1 for D under l∞ (no clamp under l2, where ``project_dictionary`` follows),
+and for v no clamp, then ``project_codes``. The loss and fooling count stay
+on the device; the caller reads them once per epoch.
+
+Serving. Every adversary that leaves a solver goes through the
+``fused_perturb`` kernel: once per unsupervised trial, and once for each
+supervised solver's final read-off with ``eps = inf`` (``clip(x + D v, 0,
+1)``). The in-loop forwards need gradients and stay plain torch, as the
+kernel has no backward; the early stop on ``max|Δ| < tol`` reads one scalar
+back to the host per step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..ops import (
     attack_loss,
     codes_from_pinv,
+    cw_margin_loss,
     dict_apply,
     dict_pinv,
+    fused_adamw_project,
     fused_perturb,
     linf_clamp,
     project_codes,
@@ -56,8 +69,9 @@ class AdilConfig:
     def __post_init__(self):
         if self.perturb_dtype != "float32":
             raise NotImplementedError(
-                f"perturb_dtype={self.perturb_dtype!r} is not ported yet; "
-                "the port computes the perturbation in float32")
+                f"perturb_dtype={self.perturb_dtype!r} is not ported yet "
+                "(ROADMAP.md queue 1 item 2); the port computes the "
+                "perturbation in float32")
 
     @property
     def coeff(self) -> float:
@@ -82,6 +96,184 @@ def make_optimizer(params: Iterable[torch.Tensor], lr: float) -> torch.optim.Ada
     """AdamW with torch defaults (betas 0.9/0.999, eps 1e-8, wd 1e-2)."""
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=1e-2)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Learnable attack state, updated in place by the training steps.
+
+    ``d`` is flat ``(K, H*W*C)`` in NHWC pixel order, as JAX's ``AdilState``
+    keeps it; :func:`d_image` gives the presentation shape. Each half has
+    its AdamW moments and its step count: in ``gd`` mode both halves move
+    at every step, so the two counts are the one shared count of JAX's
+    joint optimizer; in ``alter`` mode each counts its own phase's steps.
+    ``epoch`` counts epochs in ``gd`` mode and alternation rounds in
+    ``alter`` mode.
+    """
+
+    d: torch.Tensor
+    v: torch.Tensor
+    d_mu: torch.Tensor
+    d_nu: torch.Tensor
+    v_mu: torch.Tensor
+    v_nu: torch.Tensor
+    d_count: int = 0
+    v_count: int = 0
+    epoch: int = 0
+
+
+def d_image(d: torch.Tensor, image_shape) -> torch.Tensor:
+    """Dictionary in presentation shape (K,)+image_shape from any layout."""
+    return d.reshape((d.shape[0],) + tuple(image_shape))
+
+
+def init_codes(generator: torch.Generator, n_img: int, cfg: AdilConfig,
+               mode: str = "gd") -> torch.Tensor:
+    """v init per training mode, on the generator's device.
+
+    gd: projected U(0, 1); alter: projected zeros; distributed: projected
+    Gaussian.
+    """
+    shape = (n_img, cfg.n_atoms)
+    device = generator.device
+    if mode == "alter":
+        raw = torch.zeros(shape, device=device)
+    elif mode == "distributed":
+        raw = torch.randn(shape, generator=generator, device=device)
+    else:
+        raw = torch.rand(shape, generator=generator, device=device)
+    return project_codes(raw, cfg.eps, cfg.norm)
+
+
+def init_state(generator: torch.Generator, image_shape, n_img: int,
+               cfg: AdilConfig, mode: str = "gd",
+               d_init: Optional[torch.Tensor] = None) -> TrainState:
+    """Fresh training state on the generator's device: D drawn (or a copy of
+    ``d_init``), v by :func:`init_codes`, zero moments and counts."""
+    device = generator.device
+    d = init_dictionary(generator, image_shape, cfg) if d_init is None else d_init
+    d = torch.as_tensor(d, dtype=torch.float32, device=device)
+    d = d.reshape(d.shape[0], -1).clone()  # a copy: the steps update it in place
+    v = init_codes(generator, n_img, cfg, mode).contiguous()
+    return TrainState(d=d, v=v, d_mu=torch.zeros_like(d), d_nu=torch.zeros_like(d),
+                      v_mu=torch.zeros_like(v), v_nu=torch.zeros_like(v))
+
+
+def batch_loss(model: Model, d: torch.Tensor, v_rows: torch.Tensor,
+               x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+               cfg: AdilConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Summed attack loss over one masked batch, and its fooling count.
+
+    Training applies no pixel clamp on x + Dv (the reference's
+    ``Attack_dict_model`` forward). CE carries ``cfg.coeff`` (-1 when
+    untargeted); the CW margin handles its sign itself.
+    """
+    dv = dict_apply(v_rows, d).reshape(x.shape)
+    logits = model(x + dv).float()
+    if cfg.loss == "ce":
+        per = cfg.coeff * F.cross_entropy(logits, labels, reduction="none")
+    else:
+        per = cw_margin_loss(logits, labels, kappa=cfg.kappa, targeted=cfg.targeted)
+    loss = torch.sum(per * mask)
+    fooling = torch.sum((torch.argmax(logits, dim=-1) != labels).float() * mask)
+    return loss, fooling
+
+
+def make_train_step(model: Model, cfg: AdilConfig, update: str = "both"):
+    """One projected-AdamW training step over a batch, in place.
+
+    The step takes ``(state, x, labels, idx, mask)``: images, their clean
+    labels (see :func:`predict_labels`), global row indices into v, and a
+    0/1 mask for padded slots. It updates ``state`` and returns the
+    batch's ``(loss, fooling)`` as device scalars. ``update`` is ``"both"``
+    (the joint ``gd`` step, lr ``step_size`` for both halves), ``"v"`` or
+    ``"d"`` (the ``alter`` phases, lr ``step_size`` for v and
+    ``2 * step_size`` for D). The projection follows the AdamW step.
+
+    All of v moves at every step that updates it, as in JAX's optimizer:
+    rows outside the batch get a zero gradient, but their moments decay
+    and weight decay moves them.
+    """
+    if update not in ("both", "v", "d"):
+        raise ValueError(f"update must be 'both', 'v' or 'd', got {update!r}")
+    train_d = update in ("both", "d")
+    train_v = update in ("both", "v")
+    lr_d = cfg.step_size if update == "both" else 2 * cfg.step_size
+    clip_d = 1.0 if cfg.norm == "linf" else float("inf")
+
+    def step(state: TrainState, x, labels, idx, mask):
+        d = state.d.detach().requires_grad_(train_d)
+        v = state.v.detach().requires_grad_(train_v)
+        loss, fooling = batch_loss(model, d, v[idx], x, labels, mask, cfg)
+        grads = iter(torch.autograd.grad(
+            loss, [t for t, on in ((d, train_d), (v, train_v)) if on]))
+        with torch.no_grad():
+            if train_d:
+                state.d_count += 1
+                fused_adamw_project(state.d, next(grads), state.d_mu, state.d_nu,
+                                    state.d_count, lr_d, clip_d)
+                if cfg.norm == "l2":
+                    state.d.copy_(project_dictionary(state.d, "l2"))
+            if train_v:
+                state.v_count += 1
+                fused_adamw_project(state.v, next(grads), state.v_mu, state.v_nu,
+                                    state.v_count, cfg.step_size, float("inf"))
+                state.v.copy_(project_codes(state.v, cfg.eps, cfg.norm))
+        return loss.detach(), fooling
+
+    return step
+
+
+def make_batches(generator: torch.Generator, n_img: int, batch_size: int) -> torch.Tensor:
+    """Shuffled index batches (n_batches, B) on the generator's device,
+    padded with -1."""
+    perm = torch.randperm(n_img, generator=generator, device=generator.device)
+    n_batches = -(-n_img // batch_size)
+    pad = n_batches * batch_size - n_img
+    perm = torch.cat([perm, perm.new_full((pad,), -1)])
+    return perm.reshape(n_batches, batch_size)
+
+
+def preslice_epoch(images: torch.Tensor, labels: torch.Tensor, batches: torch.Tensor):
+    """Per-batch tensors for :func:`run_epoch`: one gather over the dataset
+    per epoch. Padded slots (index -1) gather row 0 and are masked out."""
+    idx = torch.clamp(batches, min=0)
+    return images[idx], labels[idx], batches
+
+
+def run_epoch(step, state: TrainState, xs, labels_b, idx_b):
+    """One epoch of ``step`` over presliced batches (see :func:`preslice_epoch`).
+
+    Returns the epoch's summed ``(loss, fooling)`` as device scalars, with
+    no host read, and counts the epoch in ``state.epoch``.
+    """
+    loss_sum = torch.zeros((), device=state.d.device)
+    fool_sum = torch.zeros((), device=state.d.device)
+    for x, labels, batch_idx in zip(xs, labels_b, idx_b):
+        mask = (batch_idx >= 0).float()
+        loss, fooling = step(state, x, labels, torch.clamp(batch_idx, min=0), mask)
+        loss_sum += loss
+        fool_sum += fooling
+    state.epoch += 1
+    return loss_sum, fool_sum
+
+
+def make_train_scan(model: Model, cfg: AdilConfig, update: str = "both",
+                    n_steps: int = 10):
+    """``n_steps`` chained training steps on one fixed batch.
+
+    The same as calling :func:`make_train_step` ``n_steps`` times on the same
+    ``(x, labels, idx, mask)``: the reference's ``steps_in`` repetitions over
+    one phase. Returns the per-step losses and fooling counts, stacked on the
+    device.
+    """
+    step = make_train_step(model, cfg, update)
+
+    def run(state: TrainState, x, labels, idx, mask):
+        out = [step(state, x, labels, idx, mask) for _ in range(n_steps)]
+        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+    return run
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Flax victim variables -> the port's ``state_dict``.
+"""JAX-side state -> the port's: victim variables and ADiL training state.
 
 ``state_dict_from_flax`` takes the JAX victim's ``{'params', 'batch_stats'}``
 as nested dicts of numpy arrays and returns the ``state_dict`` of the
@@ -6,16 +6,23 @@ matching port module (torchvision names). Modules are mapped by their Flax
 names: Flax numbers submodules ``Class_N`` in call order within each parent,
 so ``Bottleneck_7`` is the eighth block whatever order the dict keys come
 in. Convolution kernels go HWIO -> OIHW and dense kernels are transposed.
+
+``train_state_from_jax`` takes a JAX ``AdilState`` with numpy leaves and
+returns the port's ``TrainState``, so that both packages can start training
+from one state (their random generators differ).
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from .. import DeviceLike
+from ..attacks.adil_core import TrainState
 
 
 def _numbered(tree: Dict, cls: str) -> List[str]:
@@ -97,3 +104,38 @@ def state_dict_from_flax(variables_np: Dict) -> Dict[str, torch.Tensor]:
     if _numbered(params, "Bottleneck") or _numbered(params, "BasicBlock"):
         return _resnet(params, variables_np.get("batch_stats", {}))
     raise ValueError(f"unrecognised victim variables: {sorted(params)}")
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The ``scale_by_adam`` state (``count``, ``mu``, ``nu``) of an optax
+    AdamW state, which is a tuple of one state per chained transform."""
+    for node in opt_state:
+        if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+            return node
+    raise ValueError("no AdamW state found in the JAX optimizer state")
+
+
+def train_state_from_jax(jax_state: Any, device: DeviceLike = "cpu") -> TrainState:
+    """The port's ``TrainState`` for a JAX ``AdilState`` with numpy leaves.
+
+    Reads ``d``, ``v``, ``epoch`` and the AdamW moments and step counts of
+    either optimizer layout: one joint optax state over ``{"d", "v"}``
+    (``gd`` mode, one count for both halves) or a dict ``{"d": ..., "v":
+    ...}`` of one optax state each (``alter`` mode).
+    """
+    opt = jax_state.opt_state
+    if isinstance(opt, dict):  # alter
+        d_adam, v_adam = _adam_state(opt["d"]), _adam_state(opt["v"])
+        d_mu, d_nu, v_mu, v_nu = d_adam.mu, d_adam.nu, v_adam.mu, v_adam.nu
+    else:
+        d_adam = v_adam = _adam_state(opt)
+        d_mu, d_nu, v_mu, v_nu = d_adam.mu["d"], d_adam.nu["d"], v_adam.mu["v"], v_adam.nu["v"]
+    dev = torch.device(device)
+    flat = (np.shape(jax_state.d)[0], -1)
+    to = lambda a, shape: _tensor(a).reshape(shape).to(dev)
+    return TrainState(
+        d=to(jax_state.d, flat), d_mu=to(d_mu, flat), d_nu=to(d_nu, flat),
+        v=to(jax_state.v, np.shape(jax_state.v)), v_mu=to(v_mu, np.shape(v_mu)),
+        v_nu=to(v_nu, np.shape(v_nu)),
+        d_count=int(np.asarray(d_adam.count)), v_count=int(np.asarray(v_adam.count)),
+        epoch=int(np.asarray(jax_state.epoch)))

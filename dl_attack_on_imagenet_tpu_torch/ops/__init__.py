@@ -2,7 +2,12 @@
 losses, and the hand-written CUDA kernels with their plain twins."""
 
 from .dictionary import codes_from_pinv, dict_apply, dict_flatten, dict_gram, dict_pinv
-from .kernels import fused_perturb, fused_perturb_reference
+from .kernels import (
+    fused_adamw_project,
+    fused_adamw_project_reference,
+    fused_perturb,
+    fused_perturb_reference,
+)
 from .losses import attack_loss, cross_entropy_mean, cross_entropy_sum, cw_margin_loss
 from .projections import (
     clamp_image,
@@ -24,6 +29,8 @@ __all__ = [
     "dict_flatten",
     "dict_gram",
     "dict_pinv",
+    "fused_adamw_project",
+    "fused_adamw_project_reference",
     "fused_perturb",
     "fused_perturb_reference",
     "l1_ball_project",

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / ".kernel_build"
-SOURCES = ("fused_perturb",)
+SOURCES = ("fused_perturb", "fused_adamw_project")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

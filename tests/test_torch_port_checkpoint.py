@@ -120,18 +120,39 @@ def test_adil_forward_on_a_jax_artifact_matches_the_jax_class(tmp_path):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
+def test_adil_trains_where_the_jax_class_would_train(tmp_path):
+    _, _, pv = victim_pair("tiny")
+    cache = ArtifactCache(str(tmp_path))
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    trained = ADIL(pv, n_atoms=8, steps=1, cache=cache, data_train=(x.numpy(), np.zeros(2)))
+    assert trained.is_trained and cache.exists("ImageNet", model="tiny")
+    assert trained.dictionary.shape == (8, 32, 32, 3)
+    lazy = ADIL(pv, n_atoms=8, steps=1, steps_inference=2,
+                cache=ArtifactCache(str(tmp_path / "lazy")))
+    with pytest.raises(FileNotFoundError):
+        lazy.forward_supervised_adamw(x)  # it serves only what exists
+    assert not lazy.is_trained
+    assert lazy(x).shape == x.shape  # forward learns on its batch first
+    assert lazy.is_trained
+
+
 def test_adil_raises_where_the_jax_class_would_train(tmp_path):
+    # The options of the JAX class that the port does not take yet.
     _, _, pv = victim_pair("tiny")
     cache = ArtifactCache(str(tmp_path))
     x = torch.rand(2, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ADIL(pv, n_atoms=8, cache=cache, data_train=(x.numpy(), np.zeros(2)))
-    attack = ADIL(pv, n_atoms=8, cache=cache)
-    assert not attack.is_trained
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        attack(x)
-    with pytest.raises(FileNotFoundError):
-        attack.forward_supervised_adamw(x)
+    for kwargs in (dict(mesh=object()), dict(blocked=True), dict(pipeline_epochs=True),
+                   dict(perturb_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP.md"):
+            ADIL(pv, n_atoms=8, cache=cache, data_train=(x.numpy(), np.zeros(2)), **kwargs)
+    assert not cache.exists("ImageNet", model="tiny")
+
+
+def test_adil_raises_on_a_folder_dataset(tmp_path):
+    _, _, pv = victim_pair("tiny")
+    folder = type("Folder", (), {"samples": [("a.jpg", 0)], "image_size": 32})()
+    with pytest.raises(NotImplementedError, match="folder dataset"):
+        ADIL(pv, n_atoms=8, cache=ArtifactCache(str(tmp_path)), data_train=folder)
 
 
 def test_unsupervised_calls_draw_fresh_codes(tmp_path):

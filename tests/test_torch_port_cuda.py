@@ -1,7 +1,9 @@
-"""The port's CUDA kernel on the card: fused_perturb against its plain twin
-(atol 1e-5: the kernel and cuBLAS sum the K products in other orders), its
-launch count, and the wrapper's refusals. Every test here needs a GPU and
-skips without one.
+"""The port's CUDA kernels on the card: fused_perturb against its plain twin
+(atol 1e-5: the kernel and cuBLAS sum the K products in other orders),
+fused_adamw_project against its twin (p and mu within 1e-6, nu within 1e-6
+relative: elementwise fp32 in the twin's order), their launch counts, the
+wrappers' refusals, and three training steps on the card against the CPU.
+Every test here needs a GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -12,7 +14,15 @@ machine that has only PyTorch:
 import pytest
 import torch
 
-from dl_attack_on_imagenet_tpu_torch.ops import dict_apply, fused_perturb, fused_perturb_reference
+from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+from dl_attack_on_imagenet_tpu_torch.models import create_model
+from dl_attack_on_imagenet_tpu_torch.ops import (
+    dict_apply,
+    fused_adamw_project,
+    fused_adamw_project_reference,
+    fused_perturb,
+    fused_perturb_reference,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -21,10 +31,11 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no GPU present: the CUDA kernel runs only on the card")
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # True fp32 in matmuls and in cuDNN convolutions, as chip_smoke.py runs.
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _inputs(dev, n, k, m, v_scale=0.01):
@@ -86,3 +97,80 @@ def test_contractions_refuse_tf32(cuda):
     got = fused_perturb(v, d, x, 0.1)
     torch.backends.cuda.matmul.allow_tf32 = False
     assert float((got - fused_perturb_reference(v, d, x, 0.1)).abs().max()) <= 1e-5
+
+
+def _adamw_inputs(dev, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.rand((n,), generator=g, device=dev) * 2.4 - 1.2  # some beyond ±1
+    grad = torch.randn((n,), generator=g, device=dev)
+    mu = torch.randn((n,), generator=g, device=dev) * 0.1
+    nu = torch.rand((n,), generator=g, device=dev) * 0.01
+    return p, grad, mu, nu
+
+
+def _check_adamw(args, step, clip_val, lr=0.01):
+    want = fused_adamw_project_reference(*args, step, lr, clip_val=clip_val)
+    before = fused_adamw_project.launches
+    out = fused_adamw_project(*args, step, lr, clip_val)
+    torch.cuda.synchronize()
+    assert fused_adamw_project.launches == before + 1
+    assert out[0] is args[0] and out[1] is args[2] and out[2] is args[3]  # in place
+    p, mu, nu = out
+    assert float((p - want[0]).abs().max()) <= 1e-6
+    assert float((mu - want[1]).abs().max()) <= 1e-6
+    assert float(((nu - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max()) <= 1e-6
+    if clip_val == 1.0:
+        assert float(p.abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("n", [257, 100 * 224 * 224 * 3])
+@pytest.mark.parametrize("step", [1, 2, 100])
+@pytest.mark.parametrize("clip_val", [1.0, float("inf")])
+def test_adamw_kernel_matches_plain_twin(cuda, n, step, clip_val):
+    _check_adamw(_adamw_inputs(cuda, n), step, clip_val)
+
+
+def test_adamw_kernel_takes_unaligned_views(cuda):
+    # Views one element in are not 16-byte aligned: the scalar loop runs.
+    p, g, mu, nu = (t[1:] for t in _adamw_inputs(cuda, 1002))
+    _check_adamw((p, g, mu, nu), 3, 1.0)
+
+
+def test_adamw_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    p, g, mu, nu = _adamw_inputs(cuda, 64)
+    before = fused_adamw_project.launches
+    with pytest.raises(TypeError):
+        fused_adamw_project(p.double(), g.double(), mu.double(), nu.double(), 1, 0.01)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_adamw_project(p.reshape(8, 8).T, g.reshape(8, 8), mu.reshape(8, 8),
+                            nu.reshape(8, 8), 1, 0.01)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_adamw_project(p, g.cpu(), mu, nu, 1, 0.01)
+    with pytest.raises(ValueError, match="one shape"):
+        fused_adamw_project(p, g[:63], mu, nu, 1, 0.01)
+    assert fused_adamw_project.launches == before
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    # atol 1e-4: cuDNN sums in another order than the CPU, and AdamW
+    # divides by small second moments.
+    cpu = torch.device("cpu")
+    victim_cpu = create_model("tiny", device=cpu, seed=1)
+    victim_dev = create_model("tiny", device=cuda, state_dict=victim_cpu.net.state_dict())
+    cfg = core.AdilConfig(n_atoms=8, loss="logits")
+    g = torch.Generator().manual_seed(2)
+    images = torch.rand((6, 32, 32, 3), generator=g)
+    state_cpu = core.init_state(g, (32, 32, 3), 6, cfg)
+    state_dev = core.TrainState(**{k: (v.to(cuda) if torch.is_tensor(v) else v)
+                                   for k, v in vars(state_cpu).items()})
+    labels = core.predict_labels(victim_cpu, images)
+    idx, mask = torch.tensor([3, 0, 5, 0]), torch.tensor([1.0, 1.0, 1.0, 0.0])
+    before = fused_adamw_project.launches
+    for state, victim, dev in ((state_cpu, victim_cpu, cpu), (state_dev, victim_dev, cuda)):
+        step = core.make_train_step(victim, cfg, "both")
+        for _ in range(3):
+            step(state, images[idx].to(dev), labels[idx].to(dev), idx.to(dev), mask.to(dev))
+    torch.cuda.synchronize()
+    assert fused_adamw_project.launches == before + 6  # d and v, three steps
+    assert float((state_dev.d.cpu() - state_cpu.d).abs().max()) <= 1e-4
+    assert float((state_dev.v.cpu() - state_cpu.v).abs().max()) <= 1e-4
