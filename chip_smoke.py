@@ -10,6 +10,11 @@ phase, and exits non-zero if any phase fails:
    source, all started together) and prints what ``ptxas`` reports;
 3. holds each kernel against its plain torch twin on the card, and times
    it beside its bound, its twin and, where there is one, a PyTorch call;
+   ``fused_perturb`` also cold (each launch after a 256 MiB write, as it
+   runs after a ResNet-50 pass on the main path), with its rate, its share
+   of the bound and its launch (grid, resident blocks, registers, spills),
+   its time at N=128 (two row chunks a tile), and ``torch.addmm`` beside it
+   for information;
 4. checks the served path and three training steps against the plain path
    on the CPU at a small size;
 5. serves ADiL on ResNet-50 at 224x224, K=100 atoms, batch 64, eps 8/255
@@ -17,7 +22,7 @@ phase, and exits non-zero if any phase fails:
    supervised AdamW on the codes, each through the ``ADIL`` entry points,
    with seeded random weights and a seeded random dictionary; each mode is
    timed after a warm-up, then traced once with torch.profiler to print
-   where its device time goes;
+   where its device time goes and each kernel's time a launch in place;
 6. trains ADiL at the same configuration: one warm-up step, then 10 steps
    chained on one batch of 64 (the step ``bench.py`` times), timed and then
    traced; then each ``learn_dictionary`` path through the ``ADIL``
@@ -51,7 +56,8 @@ EPS = 8 / 255
 
 
 def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back launches, by
+    one pair of CUDA events around them all (L2 warm from the last launch)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -64,6 +70,25 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _time_cold_ms(fn, iters: int = 50, warmup: int = 3, flush_bytes: int = 256 << 20) -> float:
+    """Mean device time of ``fn`` with L2 cold: before each launch a
+    ``flush_bytes`` scratch buffer (over five times an H100's 50 MB L2) is
+    written, and each launch is timed by its own pair of CUDA events."""
+    scratch = torch.empty(flush_bytes // 4, device="cuda")
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for i in range(iters):
+        scratch.fill_(float(i))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
 def _bound(bytes_moved: float, flops: float):
     """(ms, "bytes" | "operations"): the larger of the HBM time of the bytes
     and the fp32 time of the operations on an H100 SXM."""
@@ -72,11 +97,16 @@ def _bound(bytes_moved: float, flops: float):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def fused_perturb_bytes(n: int, k: int, m: int) -> int:
+    """Bytes the function must move: v, D and x read once, out written once."""
+    return 4 * (n * k + k * m + 2 * n * m)
+
+
 def fused_perturb_bound_ms(n: int, k: int, m: int):
     """Least time for the function on an H100 SXM: each input read once and
     the output written once at the HBM rate, against its fp32 FMAs at the
     fp32 rate. Returns (ms, "bytes" | "operations")."""
-    return _bound(4 * (n * k + k * m + 2 * n * m), 2 * n * k * m)
+    return _bound(fused_perturb_bytes(n, k, m), 2 * n * k * m)
 
 
 def fused_adamw_project_bound_ms(n: int):
@@ -89,6 +119,7 @@ def fused_adamw_project_bound_ms(n: int):
 def check_fused_perturb(dev) -> dict:
     """Kernel against its plain twin in four cases; timing at the serving shape."""
     from dl_attack_on_imagenet_tpu_torch.ops import fused_perturb, fused_perturb_reference
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import fused_perturb_launch_info
 
     g = torch.Generator(device=dev).manual_seed(0)
     rand = lambda *s: torch.rand(s, generator=g, device=dev)
@@ -129,16 +160,44 @@ def check_fused_perturb(dev) -> dict:
         max_err = max(max_err, err)
 
     ms = _time_ms(lambda: fused_perturb(v, d4, x, EPS))
+    cold = _time_cold_ms(lambda: fused_perturb(v, d4, x, EPS))
     plain_ms = _time_ms(lambda: plain(v, d4, x, EPS))
     bound_ms, bound_by = fused_perturb_bound_ms(n, k, m)
-    print(f"fused_perturb at N={n} K={k} M={m}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); no single "
-          "PyTorch call computes this function, so there is no library time")
+    moved = fused_perturb_bytes(n, k, m)
+    info = fused_perturb_launch_info(n, m)
+    print(f"fused_perturb at N={n} K={k} M={m}: kernel {ms:.4f} ms warm (50 "
+          f"back-to-back), {cold:.4f} ms cold (each launch after a 256 MiB "
+          f"write), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes "
+          "this function, so there is no library time")
+    print(f"  achieved {moved / ms / 1e9:.3f} TB/s warm ({bound_ms / ms:.1%} of "
+          f"the bound), {moved / cold / 1e9:.3f} TB/s cold ({bound_ms / cold:.1%})")
+    print(f"  launch: grid {info['grid']} blocks of {info['threads']} threads "
+          f"({info['blocks_per_sm']} resident a SM x {info['sms']} SMs, "
+          f"{info['grid'] / (info['blocks_per_sm'] * info['sms']):.2f} waves), "
+          f"{info['items']} work items of 64 x {info['cols']} "
+          f"({info['items'] / info['grid']:.2f} a block), {info['atoms']} atoms x "
+          f"{info['stages']} stages, {info['smem_bytes']} B shared memory, "
+          f"{info['registers']} registers, {info['spill_bytes']} spill bytes a "
+          f"thread, 16-byte path {bool(info['vec'])}")
+    if info["spill_bytes"]:
+        raise AssertionError("fused_perturb spills registers")
+    v2, x2 = randn(2 * n, k) * 0.01, rand(2 * n, h, h, 3)
+    ms2 = _time_ms(lambda: fused_perturb(v2, d4, x2, EPS))
+    bound2, _ = fused_perturb_bound_ms(2 * n, k, m)
+    print(f"  at N={2 * n} (two 64-row chunks a tile, D read again for the second): "
+          f"{ms2:.4f} ms warm, {ms2 / ms:.2f}x N={n} for "
+          f"{fused_perturb_bytes(2 * n, k, m) / moved:.2f}x the bytes; bound {bound2:.4f} ms")
+    d2 = d4.reshape(k, m)
+    addmm_ms = _time_ms(lambda: torch.addmm(x.reshape(n, m), v, d2))
+    print(f"  informative: torch.addmm(x, v, D) in fp32 {addmm_ms:.4f} ms (cuBLAS "
+          "product and add, not the same function: no clamps)")
     return {"name": "fused_perturb", "route": "cuda",
             "source": "dl_attack_on_imagenet_tpu_torch/csrc/fused_perturb.cu",
             "replaces": "dl_attack_on_imagenet_tpu/ops/pallas_kernels.py:75",
             "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_share": bound_ms / ms}
 
 
 def check_fused_adamw_project(dev) -> dict:
@@ -194,7 +253,8 @@ def check_fused_adamw_project(dev) -> dict:
             "source": "dl_attack_on_imagenet_tpu_torch/csrc/fused_adamw_project.cu",
             "replaces": "dl_attack_on_imagenet_tpu/ops/pallas_kernels.py:164",
             "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "bound_share": bound_ms / ms}
 
 
 def check_small_against_cpu(dev) -> None:
@@ -262,7 +322,9 @@ def check_train_small_against_cpu(dev) -> None:
 def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
     """Trace one more run of ``fn`` with torch.profiler and print where the
     device time goes: the sum of kernel times against the untraced run's
-    wall time (the busy share), and the kernels that take most of it."""
+    wall time (the busy share), each of the port's kernels with its time a
+    launch in place (profiler time / launches), and the kernels that take
+    most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -276,10 +338,13 @@ def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
         print(f"profile {mode}: the profiler traced no device time")
         return
     kernels.sort(key=lambda row: -row[1])
-    ours = "; ".join(
-        f"{name} {ms:.3f} ms ({ms / total_ms:.2%})"
-        for name in ("fused_perturb", "fused_adamw_project")
-        for ms in [sum(ms for key, ms, _ in kernels if name in key)])
+    ours = []
+    for name in ("fused_perturb", "fused_adamw_project"):
+        ms = sum(ms for key, ms, _ in kernels if name in key)
+        count = sum(c for key, _, c in kernels if name in key)
+        each = f", {ms / count:.4f} ms a launch in place x{count}" if count else ""
+        ours.append(f"{name} {ms:.3f} ms ({ms / total_ms:.2%}{each})")
+    ours = "; ".join(ours)
     print(f"profile {mode}: kernels {total_ms:.1f} ms on the device in a "
           f"{wall_s * 1e3:.1f} ms run (busy {total_ms / (wall_s * 1e3):.1%}); {ours}")
     for key, ms, count in kernels[:top]:

@@ -21,7 +21,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from .. import DeviceLike
+from .. import DeviceLike, resolve_device
 from ..attacks.adil_core import TrainState
 
 
@@ -115,13 +115,14 @@ def _adam_state(opt_state: Any) -> Any:
     raise ValueError("no AdamW state found in the JAX optimizer state")
 
 
-def train_state_from_jax(jax_state: Any, device: DeviceLike = "cpu") -> TrainState:
+def train_state_from_jax(jax_state: Any, device: DeviceLike = None) -> TrainState:
     """The port's ``TrainState`` for a JAX ``AdilState`` with numpy leaves.
 
     Reads ``d``, ``v``, ``epoch`` and the AdamW moments and step counts of
     either optimizer layout: one joint optax state over ``{"d", "v"}``
     (``gd`` mode, one count for both halves) or a dict ``{"d": ..., "v":
-    ...}`` of one optax state each (``alter`` mode).
+    ...}`` of one optax state each (``alter`` mode). ``device`` defaults to
+    CUDA and raises where there is none; pass ``device="cpu"`` for the CPU.
     """
     opt = jax_state.opt_state
     if isinstance(opt, dict):  # alter
@@ -130,7 +131,7 @@ def train_state_from_jax(jax_state: Any, device: DeviceLike = "cpu") -> TrainSta
     else:
         d_adam = v_adam = _adam_state(opt)
         d_mu, d_nu, v_mu, v_nu = d_adam.mu["d"], d_adam.nu["d"], v_adam.mu["v"], v_adam.nu["v"]
-    dev = torch.device(device)
+    dev = resolve_device(device)
     flat = (np.shape(jax_state.d)[0], -1)
     to = lambda a, shape: _tensor(a).reshape(shape).to(dev)
     return TrainState(

@@ -36,8 +36,26 @@ def _bind(lib: ctypes.CDLL):
     return fn, lib.fused_perturb_max_k()
 
 
-# The kernel tiles pixel columns 512 at a time along gridDim.y (at most 65535).
-_MAX_M = 65535 * 512
+_INFO_KEYS = ("grid", "blocks_per_sm", "sms", "tiles", "items", "registers",
+              "spill_bytes", "smem_bytes", "threads", "cols", "atoms", "stages",
+              "vec")
+
+
+def fused_perturb_launch_info(n: int, m: int, aligned: bool = True) -> dict:
+    """How the kernel would launch at (N, M) on the current CUDA device: the
+    persistent grid, resident blocks per SM, SMs, column tiles, work items
+    (tiles x 64-row chunks), registers and spill (local) bytes a thread, shared
+    memory and threads a block, the tile sizes, and whether the 16-byte
+    instance runs (``aligned``: the pointers would be 16-byte aligned)."""
+    fn = native.load("fused_perturb").fused_perturb_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_longlong * len(_INFO_KEYS))()
+    err = fn(n, m, int(aligned), info)
+    if err:
+        raise RuntimeError(f"fused_perturb_info failed with CUDA error {err}")
+    return dict(zip(_INFO_KEYS, info))
 
 
 def fused_perturb(v: torch.Tensor, d: torch.Tensor, x: torch.Tensor,
@@ -75,14 +93,16 @@ def fused_perturb(v: torch.Tensor, d: torch.Tensor, x: torch.Tensor,
     fn, max_k = _bind(native.load("fused_perturb"))
     if not 0 < k <= max_k:
         raise ValueError(f"fused_perturb: the kernel takes 1..{max_k} atoms, got {k}")
-    if not 0 < m <= _MAX_M:
-        raise ValueError(f"fused_perturb: the kernel takes 1..{_MAX_M} pixels, got {m}")
+    if m == 0:
+        raise ValueError("fused_perturb: the kernel takes at least one pixel")
     out = torch.empty_like(x)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    err = fn(v.data_ptr(), d.data_ptr(), x.data_ptr(), out.data_ptr(),
-             n, k, m, float(eps), stream)
+    # The library plans the grid for the current device: make it v's.
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = fn(v.data_ptr(), d.data_ptr(), x.data_ptr(), out.data_ptr(),
+                 n, k, m, float(eps), stream)
     if err:
         raise RuntimeError(f"fused_perturb: kernel launch failed with CUDA "
                            f"error {err}")

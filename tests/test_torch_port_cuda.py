@@ -16,6 +16,7 @@ import torch
 
 from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
 from dl_attack_on_imagenet_tpu_torch.models import create_model
+from dl_attack_on_imagenet_tpu_torch.ops import kernels, native
 from dl_attack_on_imagenet_tpu_torch.ops import (
     dict_apply,
     fused_adamw_project,
@@ -38,22 +39,39 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def _inputs(dev, n, k, m, v_scale=0.01):
+def _inputs(dev, n, k, m, v_scale=0.01, x_offset=0):
     g = torch.Generator(device=dev).manual_seed(0)
     v = torch.randn((n, k), generator=g, device=dev) * v_scale
     d = torch.rand((k, m), generator=g, device=dev) * 2 - 1
-    x = torch.rand((n, m), generator=g, device=dev)
+    # x_offset=1 puts x one float into its buffer: contiguous, but not
+    # 16-byte aligned, so the kernel's scalar instance runs.
+    x = torch.empty(n * m + x_offset, device=dev)[x_offset:].view(n, m)
+    x.copy_(torch.rand((n, m), generator=g, device=dev))
     return v, d, x
 
 
-@pytest.mark.parametrize("n,k,m,eps,v_scale", [
-    (64, 100, 224 * 224 * 3, 8 / 255, 0.01),       # the serving shape
-    (5, 7, 3 * 257, 0.05, 0.1),                     # ragged N and M
-    (64, 100, 224 * 224 * 3, float("inf"), 0.01),   # supervised read-off
-    (17, 100, 224 * 224 * 3, 8 / 255, 10.0),        # huge codes: the clamp decides
+def _max_k():
+    return kernels._bind(native.load("fused_perturb"))[1]
+
+
+@pytest.mark.parametrize("n,k,m,eps,v_scale,x_offset", [
+    (64, 100, 224 * 224 * 3, 8 / 255, 0.01, 0),       # the serving shape
+    (5, 7, 3 * 257, 0.05, 0.1, 0),                     # ragged N and M
+    (64, 100, 224 * 224 * 3, float("inf"), 0.01, 0),   # supervised read-off
+    (17, 100, 224 * 224 * 3, 8 / 255, 10.0, 0),        # huge codes: the clamp decides
+    (1, 100, 3 * 1028, 8 / 255, 0.01, 0),              # one row
+    (63, 100, 3 * 1028, 8 / 255, 0.01, 0),             # one short row chunk
+    (65, 100, 3 * 1028, 8 / 255, 0.01, 0),             # a second chunk of one row
+    (130, 100, 3 * 1028, 8 / 255, 0.01, 0),            # three row chunks
+    (64, 1, 3 * 1028, 8 / 255, 0.01, 0),               # one atom: one short stage
+    (5, "max", 1028, float("inf"), 0.001, 0),          # the largest K the wrapper takes
+    (64, 100, 3 * 1028, 8 / 255, 0.01, 0),             # M % 4 == 0, not a whole tile
+    (64, 100, 3 * 1028, 8 / 255, 0.01, 1),             # x not 16-byte aligned
+    (64, 100, 3 * 1028, 0.0, 0.01, 0),                 # eps = 0: out is x
 ])
-def test_cuda_kernel_matches_plain_twin(cuda, n, k, m, eps, v_scale):
-    v, d, x = _inputs(cuda, n, k, m, v_scale)
+def test_cuda_kernel_matches_plain_twin(cuda, n, k, m, eps, v_scale, x_offset):
+    k = _max_k() if k == "max" else k
+    v, d, x = _inputs(cuda, n, k, m, v_scale, x_offset)
     before = fused_perturb.launches
     got = fused_perturb(v, d, x, eps)
     torch.cuda.synchronize()
@@ -61,6 +79,14 @@ def test_cuda_kernel_matches_plain_twin(cuda, n, k, m, eps, v_scale):
     assert float((got - fused_perturb_reference(v, d, x, eps)).abs().max()) <= 1e-5
     assert float(got.min()) >= 0 and float(got.max()) <= 1
     assert float((got - x).abs().max()) <= eps + 1e-6
+
+
+def test_cuda_kernel_launch_is_persistent_and_spills_nothing(cuda):
+    info = kernels.fused_perturb_launch_info(64, 224 * 224 * 3)
+    assert info["vec"] == 1 and info["spill_bytes"] == 0
+    assert info["grid"] == min(info["sms"] * info["blocks_per_sm"], info["tiles"])
+    assert info["items"] == info["tiles"]  # N = 64: one row chunk a tile
+    assert kernels.fused_perturb_launch_info(65, 1027, aligned=False)["vec"] == 0
 
 
 def test_cuda_kernel_takes_a_4d_dictionary(cuda):
@@ -80,7 +106,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fused_perturb(v, d, x.T.contiguous().T, 0.1)
     with pytest.raises(ValueError, match="one CUDA device"):
         fused_perturb(v.cpu(), d, x, 0.1)
-    big = _inputs(cuda, 2, 4096, 8)
+    big = _inputs(cuda, 2, _max_k() + 1, 8)
     with pytest.raises(ValueError, match="atoms"):
         fused_perturb(*big, 0.1)
     assert fused_perturb.launches == before

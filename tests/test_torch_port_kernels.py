@@ -90,3 +90,13 @@ def test_library_path_follows_the_source():
     assert path.parent == native.BUILD_DIR
     assert path.name.startswith("libfused_perturb-") and path.suffix == ".so"
     assert native.library_path("fused_perturb") == path
+
+
+def test_library_path_follows_a_changed_source(monkeypatch, tmp_path):
+    # A changed source gets a library of its own, so it is rebuilt.
+    path = native.library_path("fused_perturb")
+    source = (native.CSRC_DIR / "fused_perturb.cu").read_text()
+    (tmp_path / "fused_perturb.cu").write_text(source + "\n// changed\n")
+    monkeypatch.setattr(native, "CSRC_DIR", tmp_path)
+    changed = native.library_path("fused_perturb")
+    assert changed.parent == path.parent and changed != path

@@ -57,7 +57,7 @@ def _states(jcfg, mode, seed=1):
     if mode == "alter":  # alter starts from v = 0, which gives D no gradient
         codes = jcore.init_codes(jax.random.PRNGKey(seed + 1), N_IMG, jcfg, "gd")
         jstate = jstate.replace(v=codes)
-    return jstate, train_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate))
+    return jstate, train_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate), device="cpu")
 
 
 def _assert_state_close(state, jstate, d_lr):
@@ -84,7 +84,7 @@ def test_train_step_matches_jax(setup, update, norm, loss):
         np.testing.assert_allclose(float(loss_t), float(jloss), atol=1e-5, rtol=0)
         assert float(fool_t) == float(jfool)
         _assert_state_close(state, jstate, cfg.step_size * (2 if update == "d" else 1))
-    want = train_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate))
+    want = train_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate), device="cpu")
     assert (state.d_count, state.v_count) == (want.d_count, want.v_count)
     for name in ("d_mu", "d_nu", "v_mu", "v_nu"):
         np.testing.assert_allclose(getattr(state, name).numpy(), getattr(want, name).numpy(),
@@ -163,3 +163,12 @@ def test_init_state(mode):
     warm.d.add_(1.0)
     assert bool((d_init == 1).all())  # the state holds a copy
     assert (warm.d_count, warm.v_count, warm.epoch) == (0, 0, 0)
+
+
+def test_train_state_from_jax_defaults_to_the_card(monkeypatch):
+    # Like every entry point: no device named means CUDA, and no CUDA raises.
+    jcfg, _ = _cfgs()
+    jstate = jcore.init_state(jax.random.PRNGKey(0), (SIZE, SIZE, 3), N_IMG, jcfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate))
