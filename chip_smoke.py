@@ -29,8 +29,13 @@ phase, and exits non-zero if any phase fails:
    constructor on 128 images: ``gd`` resident for 2 epochs with a
    checkpoint after each, ``gd`` streamed from the host for 1 epoch, and
    ``alter`` for 1 round;
-7. prints one ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+7. runs the experiment of ``cli.demo`` through ``run_experiment`` on
+   ResNet-50 at 224x224 (K=100, 2 epochs of 64 images, val and test of 2
+   and 5 images, 100 DDrague steps a served batch), then the single-image
+   attack of ``cli.main`` with the dictionary that run saved, and prints
+   each stage's wall, the metrics and the results file;
+8. prints the whole run's time and one ``{"kernels": [...]}`` line, then the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 Each path runs with the kernels' launch counts set to 0 just before it, and
 fails if a kernel of that path was not launched as often as the path must.
@@ -117,7 +122,8 @@ def fused_adamw_project_bound_ms(n: int):
 
 
 def check_fused_perturb(dev) -> dict:
-    """Kernel against its plain twin in four cases; timing at the serving shape."""
+    """Kernel against its plain twin in four cases and at the CLI path's
+    batch sizes; timing at the serving shape."""
     from dl_attack_on_imagenet_tpu_torch.ops import fused_perturb, fused_perturb_reference
     from dl_attack_on_imagenet_tpu_torch.ops.kernels import fused_perturb_launch_info
 
@@ -142,6 +148,13 @@ def check_fused_perturb(dev) -> dict:
         ("eps=inf", (v, d4, x), float("inf")),
         ("codes x1000", (v * 1000, d4, x), EPS),
     ]
+    # The CLI path's batches: cli.main serves 1 image, the demo's val and test
+    # 2 and 5, all on the 16-byte path with fewer than 64 rows live.
+    for rows in (1, 2, 5):
+        served = (randn(rows, k) * 0.01, d4, rand(rows, h, h, 3))
+        vec = bool(fused_perturb_launch_info(rows, m)["vec"])
+        cases += [(f"N={rows} K=100 M=150528, 4-D D, eps={name}, 16-byte path {vec}", served, eps)
+                  for name, eps in (("8/255", EPS), ("inf", float("inf")))]
     max_err = 0.0
     for label, (cv, cd, cx), eps in cases:
         got = fused_perturb(cv, cd, cx, eps)
@@ -201,35 +214,39 @@ def check_fused_perturb(dev) -> dict:
 
 
 def check_fused_adamw_project(dev) -> dict:
-    """Kernel against its plain twin at the dictionary's size (steps 1, 2 and
-    100, clamp 1 and none), then times: the kernel, the twin, and torch's
-    fused AdamW step followed by the clamp as the library yardstick."""
+    """Kernel against its plain twin at the dictionary's size and at the
+    codes' (64 x 100, the demo's training rows; steps 1, 2 and 100, clamp 1
+    and none), then times at the dictionary's size: the kernel, the twin,
+    and torch's fused AdamW step followed by the clamp as the library
+    yardstick."""
     from dl_attack_on_imagenet_tpu_torch.ops import (
         fused_adamw_project, fused_adamw_project_reference)
 
     n = 100 * 224 * 224 * 3
     g = torch.Generator(device=dev).manual_seed(3)
 
-    def inputs():
-        return (torch.rand((n,), generator=g, device=dev) * 2.4 - 1.2,
-                torch.randn((n,), generator=g, device=dev),
-                torch.randn((n,), generator=g, device=dev) * 0.1,
-                torch.rand((n,), generator=g, device=dev) * 0.01)
+    def inputs(shape=(n,)):
+        return (torch.rand(shape, generator=g, device=dev) * 2.4 - 1.2,
+                torch.randn(shape, generator=g, device=dev),
+                torch.randn(shape, generator=g, device=dev) * 0.1,
+                torch.rand(shape, generator=g, device=dev) * 0.01)
 
     max_err = 0.0
-    for step in (1, 2, 100):
-        for clip in (1.0, float("inf")):
-            p, grad, mu, nu = inputs()
-            want = fused_adamw_project_reference(p, grad, mu, nu, step, 0.01, clip_val=clip)
-            fused_adamw_project(p, grad, mu, nu, step, 0.01, clip)
-            torch.cuda.synchronize()
-            errs = [float((p - want[0]).abs().max()), float((mu - want[1]).abs().max()),
-                    float(((nu - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max())]
-            print(f"fused_adamw_project [n={n} step={step} clip={clip}]: max_abs_err p "
-                  f"{errs[0]:.3e} mu {errs[1]:.3e}, nu max_rel_err {errs[2]:.3e} (tol 1e-6)")
-            if not max(errs) <= 1e-6:
-                raise AssertionError(f"fused_adamw_project disagrees with its twin: {errs}")
-            max_err = max(max_err, errs[0], errs[1])
+    for shape in ((n,), (64, 100)):
+        for step in (1, 2, 100):
+            for clip in (1.0, float("inf")):
+                p, grad, mu, nu = inputs(shape)
+                want = fused_adamw_project_reference(p, grad, mu, nu, step, 0.01, clip_val=clip)
+                fused_adamw_project(p, grad, mu, nu, step, 0.01, clip)
+                torch.cuda.synchronize()
+                errs = [float((p - want[0]).abs().max()), float((mu - want[1]).abs().max()),
+                        float(((nu - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max())]
+                print(f"fused_adamw_project [{'x'.join(map(str, shape))} step={step} "
+                      f"clip={clip}]: max_abs_err p {errs[0]:.3e} mu {errs[1]:.3e}, nu "
+                      f"max_rel_err {errs[2]:.3e} (tol 1e-6)")
+                if not max(errs) <= 1e-6:
+                    raise AssertionError(f"fused_adamw_project disagrees with its twin: {errs}")
+                max_err = max(max_err, errs[0], errs[1])
 
     p, grad, mu, nu = inputs()
     ms = _time_ms(lambda: fused_adamw_project(p, grad, mu, nu, 2, 0.01, 1.0))
@@ -516,7 +533,139 @@ def learn_entry_points(dev, model: str = "resnet50", size: int = 224, n: int = 1
     return total
 
 
+def demo_experiment(dev, root: str, model: str = "resnet50", size: int = 224, k: int = 100,
+                    n_images: int = 96, per_class=(64, 2, 5), steps: int = 2,
+                    batch: int = 64):
+    """The experiment of ``cli.demo`` through its ``run_experiment`` on
+    ResNet-50 at 224x224 with seeded random weights: K=100, kappa 50, eps
+    8/255 l∞, CW loss, 2 epochs at batch 64, 100 DDrague steps a served
+    batch. The data are 96 seeded U(0, 1) images labelled by the victim; the
+    rows of its most-predicted label are split [64, 2, 5] as one class.
+    Returns the (fused_perturb, fused_adamw_project) launches of the run.
+    (The keyword arguments shrink the run for a rehearsal on the CPU.)"""
+    import numpy as np
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.cli import demo
+    from dl_attack_on_imagenet_tpu_torch.cli._victim import build_victim
+    from dl_attack_on_imagenet_tpu_torch.data import ArrayDataset
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.utils import load_artifact
+
+    args = demo.build_argparser().parse_args([
+        "--model", model, "--seed", "0", "--n-atoms", str(k), "--kappa", "50",
+        "--eps", repr(EPS), "--steps", str(steps), "--batch-size", str(batch),
+        "--steps-inference", "100", "--device", str(dev), "--dict-dir", f"{root}/dicts",
+        "--results-dir", f"{root}/results"])
+    victim = build_victim(args)
+    images = np.random.default_rng(0).random((n_images, size, size, 3), dtype=np.float32)
+    labels = core.predict_labels(victim, torch.as_tensor(images, device=dev)).cpu().numpy()
+    counts = np.bincount(labels)
+    top = int(counts.argmax())
+    histogram = {int(c): int(n) for c, n in enumerate(counts) if n}
+    print(f"demo experiment: {n_images} images, the victim's label histogram {histogram}")
+    if counts[top] < sum(per_class):
+        raise AssertionError(f"demo experiment: {counts[top]} rows share label {top}, "
+                             f"the split {list(per_class)} needs {sum(per_class)}")
+    keep = labels == top
+    dataset = ArrayDataset(images[keep], labels[keep])
+    # The launches the path must make: one fused_perturb a served batch (run_experiment
+    # serves val in batches of min(10, n) and test in batches of min(20, n)), two
+    # fused_adamw_project a joint gd step (D and v), every epoch.
+    n_val, n_test = per_class[1], per_class[2]
+    want_perturb = -(-n_val // min(10, n_val)) + -(-n_test // min(20, n_test))
+    want_adamw = 2 * steps * -(-per_class[0] // min(batch, per_class[0]))
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    results = demo.run_experiment(victim, dataset, 1, list(per_class), model, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    perturb, adamw = fused_perturb.launches, fused_adamw_project.launches
+    path = f"{root}/results/results_{model}_seed0.msgpack"
+    saved = load_artifact(path)
+    print(f"demo experiment on {model} at {size}x{size}, K={k}: wall {wall:.2f} s, accuracy "
+          f"{results['accuracy']:.4f} on {len(dataset)} rows; fused_perturb launches {perturb} "
+          f"(the path makes {want_perturb}), fused_adamw_project launches {adamw} "
+          f"(the path makes {want_adamw}); results file {path} ({len(saved)} keys)")
+    for split in ("val", "test"):
+        key = results[split]["group_key"]["adil"]
+        got = {m: results[split][m][key][0] for m in ("fooling_rate", "rmse", "mse", "time")}
+        print(f"  {split}: fooling rate {got['fooling_rate']:.4f}, rmse {got['rmse']:.6e}, "
+              f"mse {got['mse']:.6f}, wall {got['time']:.3f} s")
+        if not (0 <= got["fooling_rate"] <= 1 and np.isfinite([got["rmse"], got["mse"]]).all()
+                and got["rmse"] >= 0 and got["mse"] >= 0):
+            raise AssertionError(f"demo experiment: bad {split} metrics {got}")
+    if perturb != want_perturb or adamw != want_adamw:
+        raise AssertionError(f"demo experiment: launches {perturb} / {adamw}, the path makes "
+                             f"{want_perturb} / {want_adamw}")
+    if results["accuracy"] != 1.0:
+        raise AssertionError(f"demo experiment: accuracy {results['accuracy']} on the "
+                             "victim's own labels")
+    if f"val/fooling_rate/{results['val']['group_key']['adil']}" not in saved:
+        raise AssertionError(f"demo experiment: {path} lacks the val fooling rate")
+    return perturb, adamw
+
+
+def single_image_attack(dev, root: str, model: str = "resnet50"):
+    """``cli.main.attack_image`` with the dictionary the demo phase saved
+    (same ``--dict-dir``, model ``resnet50``): supervised DDrague with the CE
+    loss on cli.main's seeded synthetic image, no training and no figure.
+
+    The seed-0 random ResNet-50 is so sure of its label that its softmax is
+    1 in fp32, where CE has no gradient and DDrague stops before its first
+    step. So the victim comes through ``--weights``: the seed-0 weights with
+    the classifier divided by the gap between the image's two top logits (a
+    temperature: every label stays, the top-1 probability drops below 1).
+    Fails unless the attack moved the image. Returns the (fused_perturb,
+    fused_adamw_project) launches."""
+    from dl_attack_on_imagenet_tpu_torch.cli import main as cli_main
+    from dl_attack_on_imagenet_tpu_torch.cli._victim import build_victim
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+
+    argv = ["--model", model, "--device", str(dev), "--dict-dir", f"{root}/dicts"]
+    seeded = build_victim(cli_main.build_argparser().parse_args(argv))
+    image = torch.as_tensor(cli_main.synthetic_image(seeded.input_size), device=dev)[None]
+    with torch.no_grad():
+        top = seeded(image).topk(2).values[0]
+    gap = max(float(top[0] - top[1]), 1.0)  # a gap under 1 saturates nothing
+    weights = {k: v.cpu() for k, v in seeded.net.state_dict().items()}
+    weights["fc.weight"] = weights["fc.weight"] / gap
+    weights["fc.bias"] = weights["fc.bias"] / gap
+    torch.save(weights, f"{root}/{model}_tempered.pth")
+    del seeded, weights
+    args = cli_main.build_argparser().parse_args(
+        argv + ["--weights", f"{root}/{model}_tempered.pth"])
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    x, adv, label, attack_label = cli_main.attack_image(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    linf = float((adv - x).abs().max())
+    perturb, adamw = fused_perturb.launches, fused_adamw_project.launches
+    with torch.no_grad():
+        p_max = float(torch.softmax(build_victim(args)(x), -1).max())
+    print(f"single-image attack on {model}: wall {wall:.2f} s (victim build and weight load "
+          f"included), label {int(label[0])} -> {int(attack_label[0])}, |adv - x|_inf "
+          f"{linf:.6f} against eps {args.eps:.6f} (DDrague may exceed it), fused_perturb "
+          f"launches {perturb}, fused_adamw_project launches {adamw}; classifier divided by "
+          f"the top-2 logit gap {gap:.4f}, clean top-1 probability {p_max:.9f}")
+    if adv.shape != x.shape or not bool(torch.isfinite(adv).all()):
+        raise AssertionError(f"single-image attack: bad adversary {tuple(adv.shape)}")
+    if not (float(adv.min()) >= 0 and float(adv.max()) <= 1):
+        raise AssertionError("single-image attack: the adversary leaves [0, 1]")
+    if not (torch.equal(x, image) and linf > 0):
+        raise AssertionError(f"single-image attack: no attack on the synthetic image "
+                             f"(|adv - x|_inf {linf})")
+    if perturb != 1 or adamw != 0:
+        raise AssertionError(f"single-image attack: launches {perturb} / {adamw}, the path "
+                             "makes 1 / 0 (no training)")
+    return perturb, adamw
+
+
 def main() -> None:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -541,6 +690,12 @@ def main() -> None:
     check_train_small_against_cpu(dev)
     kernels[0]["launches"] = serve(dev)
     kernels[1]["launches"] = train(dev) + learn_entry_points(dev)
+    with tempfile.TemporaryDirectory() as root:
+        for phase in (demo_experiment, single_image_attack):
+            perturb, adamw = phase(dev, root)
+            kernels[0]["launches"] += perturb
+            kernels[1]["launches"] += adamw
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

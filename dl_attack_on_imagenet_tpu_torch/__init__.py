@@ -21,16 +21,13 @@ DeviceLike = Union[str, torch.device, None]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless one is named.
 
-    Raises where no device is named and CUDA is absent, rather than falling
+    Raises where CUDA is named or implied and absent, rather than falling
     back to the CPU: a CPU run has to be asked for with ``device="cpu"``.
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on "
-                "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
 
 
 __all__ = ["resolve_device"]

@@ -2,18 +2,18 @@
 
 Port of ``dl_attack_on_imagenet_tpu/attacks/adil.py``: the constructor, the
 memoized dictionary artifact, dictionary learning (``method="gd"``, the
-joint projected AdamW, with the dataset resident on the device or streamed
-from the host, and ``method="alter"``, alternating v and D phases), the
-step-level train-state checkpoint, ``forward`` (supervised DDrague or
-unsupervised best-of-trials sampling, learning first where no dictionary
-exists) and ``forward_supervised_adamw``.
+joint projected AdamW, with the dataset resident on the device, streamed
+from the host, or decoded from a folder of JPEGs by the native loader, and
+``method="alter"``, alternating v and D phases), the step-level train-state
+checkpoint, ``forward`` (supervised DDrague or unsupervised best-of-trials
+sampling, learning first where no dictionary exists) and
+``forward_supervised_adamw``.
 
 Not ported yet, and refused with ``NotImplementedError``: ``mesh`` (data
-parallel training), folder datasets, ``blocked=True``,
-``pipeline_epochs=True`` and ``perturb_dtype="bfloat16"``. ``blocked`` and
-``pipeline_epochs`` take their defaults and ``False``, and train on the
-standard serial loop, whose trajectory the JAX package's own tests prove
-equal to theirs.
+parallel training), ``blocked=True``, ``pipeline_epochs=True`` and
+``perturb_dtype="bfloat16"``. ``blocked`` and ``pipeline_epochs`` take
+their defaults and ``False``, and train on the standard serial loop, whose
+trajectory the JAX package's own tests prove equal to theirs.
 """
 
 from __future__ import annotations
@@ -144,8 +144,10 @@ class ADIL(Attack):
     def learn_dictionary(self, data_train, data_val=None) -> None:
         """Learn D (and the training codes v), save the artifact, and keep D
         as this attack's dictionary."""
-        if hasattr(data_train, "samples") and not hasattr(data_train, "images"):
-            raise _not_ported("training from a folder dataset", "4")
+        if self._is_path_dataset(data_train):
+            data_train, data_val = self._dispatch_folder(data_train, data_val)
+            if data_train is None:
+                return  # trained from the JPEG files
         if self.method == "alter":
             self._learn_alter(data_train, data_val)
         elif self._should_stream(data_train):
@@ -158,6 +160,28 @@ class ADIL(Attack):
             return self.stream
         return as_array_dataset(data_train).images.nbytes > self.RESIDENT_BYTES_LIMIT
 
+    @staticmethod
+    def _is_path_dataset(data) -> bool:
+        """Folder-of-JPEGs datasets (``ImageNetFolder``-like: ``samples`` of
+        (path, label), no ``images``)."""
+        return hasattr(data, "samples") and not hasattr(data, "images")
+
+    def _dispatch_folder(self, folder, data_val):
+        """Train ``gd`` straight from the files where the native loader
+        builds and ``stream`` is not False; otherwise decode the folder into
+        arrays (with PIL where the loader is missing) and go on with those.
+        Returns the (data_train, data_val) to go on with, or (None, None)
+        once training is done."""
+        from ..runtime import get_runtime
+
+        runtime = get_runtime()
+        if data_val is not None and self._is_path_dataset(data_val):
+            data_val = data_val.materialize(runtime=runtime)
+        if runtime is not None and self.method != "alter" and self.stream is not False:
+            self._learn_gd_from_folder(folder, data_val, runtime)
+            return None, None
+        return folder.materialize(runtime=runtime), data_val
+
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.seed)
 
@@ -168,8 +192,8 @@ class ADIL(Attack):
         prev = self.cache.load("ImageNet", model=self.model_name)
         return prev["d"] if prev is not None else None
 
-    def _init(self, ds, generator, mode: str) -> core.TrainState:
-        return core.init_state(generator, ds.image_shape, len(ds), self.cfg, mode=mode,
+    def _init(self, image_shape, n: int, generator, mode: str) -> core.TrainState:
+        return core.init_state(generator, image_shape, n, self.cfg, mode=mode,
                                d_init=self._load_warm_start())
 
     def _prepare(self, data_train, mode: str):
@@ -178,7 +202,7 @@ class ADIL(Attack):
         ds = as_array_dataset(data_train)
         images = torch.as_tensor(ds.images, dtype=torch.float32, device=self.device).contiguous()
         generator = self._generator()
-        state = self._init(ds, generator, mode)
+        state = self._init(ds.image_shape, len(ds), generator, mode)
         labels = core.predict_labels(self.victim, images)
         return ds, images, labels, generator, state
 
@@ -273,7 +297,7 @@ class ADIL(Attack):
         ds = as_array_dataset(data_train)
         n = len(ds)
         generator = self._generator()
-        state = self._init(ds, generator, "gd")
+        state = self._init(ds.image_shape, n, generator, "gd")
         step = core.make_train_step(self.victim, self.cfg, "both")
         labels_host = np.empty((n,), np.int64)
         for idx, x, _ in ds.batches(self.cfg.batch_size):  # one pass for clean labels
@@ -296,6 +320,56 @@ class ADIL(Attack):
             if self._end_epoch(t, "gd/stream", state, generator, sums, n, history, data_val):
                 break
         self._finish(state, ds.image_shape, history, timer)
+
+    def _learn_gd_from_folder(self, folder, data_val, runtime) -> None:
+        """Joint projected AdamW fed from the JPEG files: the native loader
+        decodes, resizes and crops on its threads, batches flow to the device
+        through the prefetching pipeline, and the loader's row indices
+        address v. Padding slots (label -1) and files that failed to decode
+        (label -2) are masked out. Same update as :meth:`_learn_gd`."""
+        from ..runtime import HostLoader
+
+        paths = [p for p, _ in folder.samples]
+        n = len(paths)
+        size = folder.image_size
+        bsz = min(self.cfg.batch_size, n)
+        generator = self._generator()
+        state = self._init((size, size, 3), n, generator, "gd")
+        step = core.make_train_step(self.victim, self.cfg, "both")
+
+        def batches(labels, shuffle: bool, seed: int = 0):
+            loader = HostLoader(runtime, paths, labels, bsz, size, shuffle=shuffle, seed=seed)
+            try:
+                for _, x, labs, rows in loader.iter_indexed():
+                    yield x, np.maximum(labs, 0), np.maximum(rows, 0), (labs >= 0).astype(np.float32)
+            finally:
+                loader.close()
+
+        # One loader pass for the clean labels, read back once. Masked slots
+        # write to a spare last entry.
+        labels = torch.zeros((n + 1,), dtype=torch.int64, device=self.device)
+        for x, _, rows, mask in prefetch_to_device(batches(np.zeros(n, np.int64), False),
+                                                   size=2, device=self.device):
+            labels[torch.where(mask > 0, rows, n)] = core.predict_labels(self.victim, x)
+        labels_host = labels[:n].cpu().numpy()
+
+        history = self._resume(state, generator, "gd/native")
+        timer = StepTimer(warmup=1)
+        for t in range(state.epoch, self.cfg.steps):
+            with timer.step(), annotate("adil/epoch_native"):
+                loss_sum = torch.zeros((), device=self.device)
+                fool_sum = torch.zeros((), device=self.device)
+                for x, labs, rows, mask in prefetch_to_device(
+                        batches(labels_host, True, self.seed + 7919 * (t + 1)), size=2,
+                        device=self.device):
+                    loss, fool = step(state, x, labs, rows, mask)
+                    loss_sum += loss
+                    fool_sum += fool
+                state.epoch += 1
+                sums = torch.stack([loss_sum, fool_sum]).tolist()  # the epoch's one host read
+            if self._end_epoch(t, "gd/native", state, generator, sums, n, history, data_val):
+                break
+        self._finish(state, (size, size, 3), history, timer)
 
     def _learn_alter(self, data_train, data_val) -> None:
         """Alternating rounds: ``steps_inner`` epochs on v with D frozen, then

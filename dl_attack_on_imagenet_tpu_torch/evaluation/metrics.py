@@ -1,13 +1,16 @@
-"""Attack-quality metrics: fooling rate, relative MSE and MSE.
+"""Attack-quality metrics and top-1 accuracy.
 
-Port of ``compute_fooling_rate``, ``compute_rmse`` and ``compute_mse`` from
-``dl_attack_on_imagenet_tpu/evaluation/metrics.py``.
+Port of ``compute_fooling_rate``, ``compute_rmse``, ``compute_mse`` and
+``model_accuracy`` from ``dl_attack_on_imagenet_tpu/evaluation/metrics.py``.
+``model_accuracy_sharded`` waits for the data-parallel port (ROADMAP.md
+queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..data import as_array_dataset
 from ..models import VictimModel
 
 
@@ -43,3 +46,16 @@ def compute_mse(adversary, clean, reduction="sum") -> float:
     """Per-image squared error."""
     adversary, clean = torch.as_tensor(adversary), torch.as_tensor(clean)
     return _reduce(_per_image_sum((adversary - clean) ** 2), reduction)
+
+
+@torch.no_grad()
+def model_accuracy(dataset, victim: VictimModel, batch_size: int = 128) -> float:
+    """Top-1 accuracy over a dataset: one forward a batch on the victim's
+    device, the correct count summed there and read once at the end."""
+    ds = as_array_dataset(dataset)
+    dev = victim.device
+    correct = torch.zeros((), dtype=torch.int64, device=dev)
+    for _, x, y in ds.batches(batch_size):
+        pred = victim.predict(torch.as_tensor(x, dtype=torch.float32, device=dev))
+        correct += torch.sum(pred == torch.as_tensor(y, device=dev))
+    return int(correct) / len(ds)

@@ -1,4 +1,5 @@
-"""JAX-side state -> the port's: victim variables and ADiL training state.
+"""Weights and state into the port: victim variables and ADiL training state
+from the JAX package, victim weights from torchvision checkpoints.
 
 ``state_dict_from_flax`` takes the JAX victim's ``{'params', 'batch_stats'}``
 as nested dicts of numpy arrays and returns the ``state_dict`` of the
@@ -6,6 +7,9 @@ matching port module (torchvision names). Modules are mapped by their Flax
 names: Flax numbers submodules ``Class_N`` in call order within each parent,
 so ``Bottleneck_7`` is the eighth block whatever order the dict keys come
 in. Convolution kernels go HWIO -> OIHW and dense kernels are transposed.
+
+``load_torch_checkpoint`` loads a torchvision ``state_dict`` saved with
+``torch.save`` into a port victim.
 
 ``train_state_from_jax`` takes a JAX ``AdilState`` with numpy leaves and
 returns the port's ``TrainState``, so that both packages can start training
@@ -104,6 +108,14 @@ def state_dict_from_flax(variables_np: Dict) -> Dict[str, torch.Tensor]:
     if _numbered(params, "Bottleneck") or _numbered(params, "BasicBlock"):
         return _resnet(params, variables_np.get("batch_stats", {}))
     raise ValueError(f"unrecognised victim variables: {sorted(params)}")
+
+
+def load_torch_checkpoint(path: str, victim):
+    """Load a ``torch.save``d torchvision ``state_dict`` into ``victim`` in
+    place and return it; the port's modules use torchvision's names, so no
+    conversion is needed."""
+    victim.net.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    return victim
 
 
 def _adam_state(opt_state: Any) -> Any:

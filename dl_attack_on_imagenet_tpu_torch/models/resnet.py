@@ -1,11 +1,12 @@
 """ResNet family (18/34/50) as torchvision-shaped modules.
 
 Port of ``dl_attack_on_imagenet_tpu/models/resnet.py`` without its TPU
-layout knobs (space-to-depth stem, blocked input, folded BN). The module and
-parameter names are torchvision's, so a torchvision ``state_dict`` loads as
-it is. BatchNorm is frozen in eval mode (eps 1e-5); the stem applies its
-ReLU before the max pool, as torchvision does, where the JAX package applies
-it after: both orders give the same function.
+layout knobs (space-to-depth stem, blocked input); ``models/fold.py`` folds
+the BatchNorms of a built one. The module and parameter names are
+torchvision's, so a torchvision ``state_dict`` loads as it is. BatchNorm is
+frozen in eval mode (eps 1e-5); the stem applies its ReLU before the max
+pool, as torchvision does, where the JAX package applies it after: both
+orders give the same function.
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ the same victim weights, carried from the JAX victim into the port with
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 import torch
 
@@ -31,10 +32,11 @@ def _randomize_bn(params, stats, rs: np.random.RandomState) -> None:
             _randomize_bn(sub, stats.get(key, {}), rs)
 
 
-def victim_pair(name: str, input_size=None, seed: int = 0):
+def victim_pair(name: str, input_size=None, seed: int = 0, key: int = 0):
     """(JAX victim, its numpy variables, port victim on the CPU) with the
-    same weights; BatchNorm statistics are randomized in numpy."""
-    jv = jax_create_model(name, input_size=input_size)
+    same weights, drawn by the JAX package from ``PRNGKey(key)``; BatchNorm
+    statistics are randomized in numpy."""
+    jv = jax_create_model(name, input_size=input_size, rng=jax.random.PRNGKey(key))
     variables = jax_tree_to_numpy(jv.variables)
     if "batch_stats" in variables:
         _randomize_bn(variables["params"], variables["batch_stats"],

@@ -149,10 +149,19 @@ def test_adil_raises_where_the_jax_class_would_train(tmp_path):
 
 
 def test_adil_raises_on_a_folder_dataset(tmp_path):
+    # Folder datasets train since the native loader was ported; one whose
+    # files cannot be read raises when it is decoded up front (stream=False),
+    # by the native loader or, without it, by PIL.
+    from dl_attack_on_imagenet_tpu_torch.data import ImageNetFolder
+
+    (tmp_path / "n0").mkdir()
+    (tmp_path / "n0" / "a.JPEG").write_bytes(b"not a jpeg")
+    folder = ImageNetFolder(str(tmp_path), image_size=32)
     _, _, pv = victim_pair("tiny")
-    folder = type("Folder", (), {"samples": [("a.jpg", 0)], "image_size": 32})()
-    with pytest.raises(NotImplementedError, match="folder dataset"):
-        ADIL(pv, n_atoms=8, cache=ArtifactCache(str(tmp_path)), data_train=folder)
+    cache = ArtifactCache(str(tmp_path / "cache"))
+    with pytest.raises(OSError):
+        ADIL(pv, n_atoms=8, cache=cache, data_train=folder, stream=False)
+    assert not cache.exists("ImageNet", model="tiny")
 
 
 def test_unsupervised_calls_draw_fresh_codes(tmp_path):

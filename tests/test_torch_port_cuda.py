@@ -200,3 +200,58 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
     assert fused_adamw_project.launches == before + 6  # d and v, three steps
     assert float((state_dev.d.cpu() - state_cpu.d).abs().max()) <= 1e-4
     assert float((state_dev.v.cpu() - state_cpu.v).abs().max()) <= 1e-4
+
+
+def test_model_accuracy_on_the_card_matches_the_cpu(cuda):
+    from dl_attack_on_imagenet_tpu_torch.evaluation import model_accuracy
+
+    victim_cpu = create_model("tiny", device="cpu", seed=14)
+    victim_dev = create_model("tiny", device=cuda, state_dict=victim_cpu.net.state_dict())
+    g = torch.Generator().manual_seed(5)
+    images = torch.rand((40, 32, 32, 3), generator=g).numpy()
+    labels = victim_cpu.predict(torch.as_tensor(images)).numpy()
+    labels[::3] = (labels[::3] + 1) % 10
+    want = model_accuracy((images, labels), victim_cpu, batch_size=16)
+    assert want == pytest.approx(26 / 40)
+    assert abs(model_accuracy((images, labels), victim_dev, batch_size=16) - want) <= 1e-4
+
+
+def test_run_experiment_on_the_card_matches_the_cpu(cuda, tmp_path):
+    # The demo's experiment at tiny size (24 images in two classes, K=4)
+    # from one saved dictionary: accuracy, fooling rates, RMSE and MSE
+    # within 1e-4 (cuDNN sums in another order than the CPU over 10 DDrague
+    # steps).
+    import numpy as np
+
+    from dl_attack_on_imagenet_tpu_torch.cli import demo
+    from dl_attack_on_imagenet_tpu_torch.data import ArrayDataset
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    d = np.random.RandomState(0).uniform(-1.0, 1.0, (4, 32, 32, 3)).astype(np.float32)
+    images = np.random.default_rng(14).random((24, 32, 32, 3), dtype=np.float32)
+    victim_cpu = create_model("tiny", device="cpu", seed=2)
+    labels = victim_cpu.predict(torch.as_tensor(images)).numpy()
+    assert sorted(np.unique(labels)) == [2, 7]
+    flip = np.where(labels == 2)[0][:2]
+    labels[flip] = 7  # two misclassified rows, left out where they land in val or test
+    results = {}
+    for dev in ("cpu", cuda):
+        victim = victim_cpu if dev == "cpu" else create_model(
+            "tiny", device=dev, state_dict=victim_cpu.net.state_dict())
+        root = str(tmp_path / str(dev))
+        ArtifactCache(root).save({"d": d}, "ImageNet", model="tiny")
+        args = demo.build_argparser().parse_args(
+            ["--seed", "14", "--n-atoms", "4", "--steps-inference", "10", "--eps", "0.3",
+             "--device", str(dev), "--dict-dir", root, "--results-dir", root])
+        before = fused_perturb.launches
+        results[str(dev)] = demo.run_experiment(victim, ArrayDataset(images, labels), 2,
+                                                [4, 2, 2], "tiny", args)
+    assert fused_perturb.launches - before == 2  # one a served batch: val and test
+    got, want = results[str(cuda)], results["cpu"]
+    assert want["accuracy"] == pytest.approx(22 / 24)
+    assert abs(got["accuracy"] - want["accuracy"]) <= 1e-4
+    for split in ("val", "test"):
+        key = want[split]["group_key"]["adil"]
+        for metric in ("fooling_rate", "rmse", "mse"):
+            np.testing.assert_allclose(got[split][metric][key], want[split][metric][key],
+                                       atol=1e-4, rtol=1e-4)
