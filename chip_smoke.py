@@ -16,7 +16,8 @@ phase, and exits non-zero if any phase fails:
    its time at N=128 (two row chunks a tile), and ``torch.addmm`` beside it
    for information;
 4. checks the served path and three training steps against the plain path
-   on the CPU at a small size;
+   on the CPU at a small size, and every victim family's logits and CW input
+   gradient on the card against the CPU at a small input size;
 5. serves ADiL on ResNet-50 at 224x224, K=100 atoms, batch 64, eps 8/255
    l∞, CW loss: supervised DDrague, unsupervised best-of-trials sampling and
    supervised AdamW on the codes, each through the ``ADIL`` entry points,
@@ -29,12 +30,19 @@ phase, and exits non-zero if any phase fails:
    constructor on 128 images: ``gd`` resident for 2 epochs with a
    checkpoint after each, ``gd`` streamed from the host for 1 epoch, and
    ``alter`` for 1 round;
-7. runs the experiment of ``cli.demo`` through ``run_experiment`` on
-   ResNet-50 at 224x224 (K=100, 2 epochs of 64 images, val and test of 2
-   and 5 images, 100 DDrague steps a served batch), then the single-image
-   attack of ``cli.main`` with the dictionary that run saved, and prints
-   each stage's wall, the metrics and the results file;
-8. prints the whole run's time and one ``{"kernels": [...]}`` line, then the
+7. serves one batch of 64 on each other victim of the zoo at full width and
+   depth (DenseNet-169, GoogLeNet, Inception-v3, VGG-16, ViT-B/16 at
+   224x224; supervised DDrague cut to 10 steps and 10 unsupervised trials),
+   timed and traced like phase 5; then holds ``fused_perturb`` against its
+   twin at Inception's native 299x299 (M = 268203, odd: the kernel's scalar
+   instance) and serves one Inception batch there;
+8. runs the experiment of ``cli.demo`` through ``run_experiment`` on its
+   default victim, DenseNet-121, at 224x224 (K=100, 2 epochs of 64 images,
+   val and test of 2 and 5 images, 100 DDrague steps a served batch), then
+   the single-image attack of ``cli.main`` on its default victim,
+   MobileNetV2, with the dictionary that run saved, and prints each stage's
+   wall, the metrics and the results file;
+9. prints the whole run's time and one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Each path runs with the kernels' launch counts set to 0 just before it, and
@@ -58,6 +66,13 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
 EPS = 8 / 255
+# Every victim family but the ResNets at a small input size, for the card
+# against the CPU: (registry name, input size).
+SMALL_FAMILIES = (("densenet121", 32), ("mobilenet_v2", 32), ("googlenet", 32),
+                  ("inception_v3", 75), ("vgg11", 32), ("vit_tiny", 32))
+# The zoo phase's victims beside the main path's ResNet-50, DenseNet-121
+# and MobileNetV2.
+ZOO = ("densenet169", "googlenet", "inception_v3", "vgg16", "vit_b16")
 
 
 def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -336,16 +351,49 @@ def check_train_small_against_cpu(dev) -> None:
         raise AssertionError(f"training on the card disagrees with the CPU: {err}")
 
 
+def check_families_against_cpu(dev) -> None:
+    """Each victim family on the card against the same victim on the CPU at
+    a small input size, batch 2: logits and the CW-loss input gradient
+    within 1e-4 (cuDNN's depthwise, grouped and padded-pool kernels and the
+    CPU sum in other orders)."""
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import attack_loss
+
+    g = torch.Generator().manual_seed(3)
+    labels = torch.tensor([1, 3])
+    for name, size in SMALL_FAMILIES:
+        victim_cpu = create_model(name, input_size=size, device="cpu", seed=1)
+        victim_dev = create_model(name, input_size=size, device=dev,
+                                  state_dict=victim_cpu.net.state_dict())
+        x = torch.rand((2, size, size, 3), generator=g)
+        out = []
+        for victim, d in ((victim_cpu, torch.device("cpu")), (victim_dev, dev)):
+            xt = x.to(d).requires_grad_(True)
+            logits = victim(xt)
+            (grad,) = torch.autograd.grad(attack_loss(logits, labels.to(d), loss="logits"), xt)
+            out.append((logits.detach().cpu(), grad.cpu()))
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(*out)]
+        print(f"small-size {name} at {size}x{size}: card vs CPU max_abs_err logits "
+              f"{errs[0]:.3e}, CW input gradient {errs[1]:.3e} (tol 1e-4; |logits| up to "
+              f"{float(out[0][0].abs().max()):.3e}, |gradient| up to "
+              f"{float(out[0][1].abs().max()):.3e})")
+        if not max(errs) <= 1e-4:
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {errs}")
+
+
 def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
     """Trace one more run of ``fn`` with torch.profiler and print where the
     device time goes: the sum of kernel times against the untraced run's
     wall time (the busy share), each of the port's kernels with its time a
     launch in place (profiler time / launches), and the kernels that take
-    most of it."""
+    most of it. Only the device is traced: recording the host's operators
+    too gave the same kernel sums on a DenseNet-169 run of 0.87 s but took
+    30 s to trace and read against 9 s."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -375,57 +423,137 @@ def _zero_counts() -> None:
     fused_perturb.launches = fused_adamw_project.launches = 0
 
 
+def _serve_mode(run, images, victim, label: str, budget: bool) -> int:
+    """One served mode: a warm-up run, a timed run with the launch count set
+    to 0 before it, its checks (finite adversaries of the images' shape in
+    [0, 1], inside the l∞ budget where ``budget``, at least one
+    ``fused_perturb`` launch), then a traced run. Returns the timed run's
+    ``fused_perturb`` launches."""
+    from dl_attack_on_imagenet_tpu_torch.evaluation import (
+        compute_fooling_rate, compute_mse, compute_rmse)
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_perturb
+
+    t0 = time.perf_counter()
+    run(images)  # warm-up
+    torch.cuda.synchronize()
+    warm_up = time.perf_counter() - t0
+    _zero_counts()
+    t0 = time.perf_counter()
+    adv = run(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_perturb.launches
+    linf = float((adv - images).abs().max())
+    clean = victim.predict(images)
+    fool = compute_fooling_rate(victim, adv, None, "mean", clean_labels=clean)
+    print(f"serve {label}: wall {wall:.3f} s (warm-up {warm_up:.3f} s), fused_perturb launches {launches}, "
+          f"fooling rate {fool:.4f} ({clean.unique().numel()} distinct clean "
+          f"labels), mse {compute_mse(adv, images, 'mean'):.6f}, "
+          f"rmse {compute_rmse(adv, images, 'mean'):.6e}, |adv - x|_inf {linf:.6f}")
+    if adv.shape != images.shape or not bool(torch.isfinite(adv).all()):
+        raise AssertionError(f"{label}: bad adversaries {tuple(adv.shape)}")
+    if not (float(adv.min()) >= 0 and float(adv.max()) <= 1):
+        raise AssertionError(f"{label}: adversaries leave [0, 1]")
+    if budget and not linf <= EPS + 1e-5:
+        raise AssertionError(f"{label}: l∞ budget broken: {linf} > {EPS}")
+    if launches == 0:
+        raise AssertionError(f"{label}: fused_perturb was never launched")
+    t0 = time.perf_counter()
+    print_device_breakdown(label, lambda: run(images), wall)
+    print(f"  traced run and its breakdown: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _served_inputs(dev, name: str, size: int, cache, n: int = 64, k: int = 100):
+    """The seed-0 victim ``name`` at ``size``, a seeded projected random
+    dictionary of ``k`` atoms saved for it in ``cache``, and ``n`` seeded
+    U(0, 1) images."""
+    from dl_attack_on_imagenet_tpu_torch.attacks.adil_core import AdilConfig, init_dictionary
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import project_dictionary
+
+    victim = create_model(name, input_size=size, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    d = project_dictionary(init_dictionary(g, (size, size, 3), AdilConfig(n_atoms=k)))
+    cache.save({"d": d}, "ImageNet", model=name)
+    return victim, torch.rand((n, size, size, 3), generator=g, device=dev)
+
+
 def serve(dev) -> int:
     """ADiL serving on ResNet-50 through the ADIL entry points; returns the
     fused_perturb launches of the three timed runs."""
     from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
-    from dl_attack_on_imagenet_tpu_torch.attacks.adil_core import AdilConfig, init_dictionary
-    from dl_attack_on_imagenet_tpu_torch.evaluation import (
-        compute_fooling_rate, compute_mse, compute_rmse)
-    from dl_attack_on_imagenet_tpu_torch.models import create_model
-    from dl_attack_on_imagenet_tpu_torch.ops import fused_perturb, project_dictionary
     from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
 
-    n, k, size = 64, 100, 224
-    victim = create_model("resnet50", device=dev, seed=0)
-    g = torch.Generator(device=dev).manual_seed(0)
-    d = project_dictionary(init_dictionary(g, (size, size, 3), AdilConfig(n_atoms=k)))
-    images = torch.rand((n, size, size, 3), generator=g, device=dev)
+    k = 100
     total_launches = 0
     with tempfile.TemporaryDirectory() as root:
         cache = ArtifactCache(root)
-        cache.save({"d": d}, "ImageNet", model="resnet50")
+        victim, images = _served_inputs(dev, "resnet50", 224, cache, k=k)
         for mode in ("supervised", "unsupervised", "supervised_adamw"):
             attack = ADIL(victim, eps=EPS, n_atoms=k, loss="logits",
                           steps_inference=30, trials=10, cache=cache,
                           attack="unsupervised" if mode == "unsupervised" else "supervised")
             run = attack.forward_supervised_adamw if mode == "supervised_adamw" else attack
-            run(images)  # warm-up
-            torch.cuda.synchronize()
-            _zero_counts()
-            t0 = time.perf_counter()
-            adv = run(images)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = fused_perturb.launches
-            total_launches += launches
-            linf = float((adv - images).abs().max())
-            clean = victim.predict(images)
-            fool = compute_fooling_rate(victim, adv, None, "mean", clean_labels=clean)
-            print(f"serve {mode}: wall {wall:.3f} s, fused_perturb launches {launches}, "
-                  f"fooling rate {fool:.4f} ({clean.unique().numel()} distinct clean "
-                  f"labels), mse {compute_mse(adv, images, 'mean'):.6f}, "
-                  f"rmse {compute_rmse(adv, images, 'mean'):.6e}, |adv - x|_inf {linf:.6f}")
-            if adv.shape != images.shape or not bool(torch.isfinite(adv).all()):
-                raise AssertionError(f"{mode}: bad adversaries {tuple(adv.shape)}")
-            if not (float(adv.min()) >= 0 and float(adv.max()) <= 1):
-                raise AssertionError(f"{mode}: adversaries leave [0, 1]")
-            if mode != "supervised" and not linf <= EPS + 1e-5:
-                raise AssertionError(f"{mode}: l∞ budget broken: {linf} > {EPS}")
-            if launches == 0:
-                raise AssertionError(f"{mode}: fused_perturb was never launched")
-            print_device_breakdown(mode, lambda: run(images), wall)
+            total_launches += _serve_mode(run, images, victim, mode, mode != "supervised")
     return total_launches
+
+
+def check_fused_perturb_inception(dev, size: int = 299) -> float:
+    """``fused_perturb`` against its twin at Inception-v3's native 299x299
+    (M = 268203, odd, so the kernel's scalar instance runs) at n = 64 and 5,
+    K = 100; returns the largest error (tolerance 1e-5)."""
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_perturb, fused_perturb_reference
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import fused_perturb_launch_info
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    k, m = 100, size * size * 3
+    d = torch.rand((k, m), generator=g, device=dev) * 2 - 1
+    max_err = 0.0
+    for n in (64, 5):
+        v = torch.randn((n, k), generator=g, device=dev) * 0.01
+        x = torch.rand((n, m), generator=g, device=dev)
+        vec = bool(fused_perturb_launch_info(n, m)["vec"])
+        for eps in (EPS, float("inf")):
+            err = float((fused_perturb(v, d, x, eps) - fused_perturb_reference(v, d, x, eps))
+                        .abs().max())
+            print(f"fused_perturb [N={n} K={k} M={m} (Inception at {size}x{size}), eps={eps:.6f}, "
+                  f"16-byte path {vec}]: max_abs_err {err:.3e} (tol 1e-5)")
+            if not err <= 1e-5:
+                raise AssertionError(f"fused_perturb disagrees with its twin at M={m}: {err}")
+            max_err = max(max_err, err)
+    return max_err
+
+
+def serve_zoo(dev, zoo=ZOO, size: int = 224, native: int = 299, n: int = 64):
+    """One served batch of 64 on each victim of ``ZOO`` at 224x224 (K=100,
+    eps 8/255 l∞, CW loss): supervised DDrague cut to 10 steps and 10
+    unsupervised trials, each timed and traced as in ``serve``; then
+    ``fused_perturb`` at Inception's 299x299 and one Inception batch there.
+    Returns (fused_perturb launches of the timed runs, the largest error of
+    the 299x299 kernel check). (The keyword arguments shrink the run for a
+    rehearsal on the CPU.)"""
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    launches, max_err = 0, 0.0
+    with tempfile.TemporaryDirectory() as root:
+        cache = ArtifactCache(root)
+        for name, side in [(name, size) for name in zoo] + [("inception_v3", native)]:
+            if side == native:
+                max_err = check_fused_perturb_inception(dev, native)
+            t0 = time.perf_counter()
+            victim, images = _served_inputs(dev, name, side, cache, n=n)
+            built = time.perf_counter() - t0
+            for mode in ("supervised", "unsupervised"):
+                attack = ADIL(victim, eps=EPS, n_atoms=100, loss="logits", steps_inference=10,
+                              trials=10, cache=cache, attack=mode)
+                launches += _serve_mode(attack, images, victim, f"{name} {side}x{side} {mode}",
+                                        mode == "unsupervised")
+            print(f"zoo {name} at {side}x{side}: {time.perf_counter() - t0:.1f} s in all, "
+                  f"{built:.1f} s of it to build the victim and its inputs")
+            del victim, images
+    return launches, max_err
 
 
 def _check_trained(name: str, d, v, eps: float) -> None:
@@ -533,11 +661,12 @@ def learn_entry_points(dev, model: str = "resnet50", size: int = 224, n: int = 1
     return total
 
 
-def demo_experiment(dev, root: str, model: str = "resnet50", size: int = 224, k: int = 100,
+def demo_experiment(dev, root: str, model: str = "densenet", size: int = 224, k: int = 100,
                     n_images: int = 96, per_class=(64, 2, 5), steps: int = 2,
                     batch: int = 64):
-    """The experiment of ``cli.demo`` through its ``run_experiment`` on
-    ResNet-50 at 224x224 with seeded random weights: K=100, kappa 50, eps
+    """The experiment of ``cli.demo`` through its ``run_experiment`` on its
+    default victim, DenseNet-121 (``--model densenet``), at 224x224 with
+    seeded random weights: K=100, kappa 50, eps
     8/255 l∞, CW loss, 2 epochs at batch 64, 100 DDrague steps a served
     batch. The data are 96 seeded U(0, 1) images labelled by the victim; the
     rows of its most-predicted label are split [64, 2, 5] as one class.
@@ -607,22 +736,28 @@ def demo_experiment(dev, root: str, model: str = "resnet50", size: int = 224, k:
     return perturb, adamw
 
 
-def single_image_attack(dev, root: str, model: str = "resnet50"):
-    """``cli.main.attack_image`` with the dictionary the demo phase saved
-    (same ``--dict-dir``, model ``resnet50``): supervised DDrague with the CE
-    loss on cli.main's seeded synthetic image, no training and no figure.
+def single_image_attack(dev, root: str, model: str = "mobilenet", dictionary_of: str = "densenet"):
+    """``cli.main.attack_image`` on its default victim, MobileNetV2
+    (``--model mobilenet``), with the dictionary that the demo phase learned
+    on ``dictionary_of`` saved under this model in the same ``--dict-dir``
+    (a transfer: the dictionary's shape does not depend on the victim):
+    supervised DDrague with the CE loss on cli.main's seeded synthetic
+    image, no training and no figure.
 
-    The seed-0 random ResNet-50 is so sure of its label that its softmax is
-    1 in fp32, where CE has no gradient and DDrague stops before its first
-    step. So the victim comes through ``--weights``: the seed-0 weights with
-    the classifier divided by the gap between the image's two top logits (a
-    temperature: every label stays, the top-1 probability drops below 1).
-    Fails unless the attack moved the image. Returns the (fused_perturb,
-    fused_adamw_project) launches."""
+    A seed-0 random victim is so sure of its label that its softmax is 1 in
+    fp32, where CE has no gradient and DDrague stops before its first step.
+    So the victim comes through ``--weights``: the seed-0 weights with the
+    classifier (the last ``nn.Linear``) divided by the gap between the
+    image's two top logits (a temperature: every label stays, the top-1
+    probability drops below 1). Fails unless the attack moved the image.
+    Returns the (fused_perturb, fused_adamw_project) launches."""
     from dl_attack_on_imagenet_tpu_torch.cli import main as cli_main
     from dl_attack_on_imagenet_tpu_torch.cli._victim import build_victim
     from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
 
+    cache = ArtifactCache(f"{root}/dicts")
+    cache.save({"d": cache.load("ImageNet", model=dictionary_of)["d"]}, "ImageNet", model=model)
     argv = ["--model", model, "--device", str(dev), "--dict-dir", f"{root}/dicts"]
     seeded = build_victim(cli_main.build_argparser().parse_args(argv))
     image = torch.as_tensor(cli_main.synthetic_image(seeded.input_size), device=dev)[None]
@@ -630,8 +765,9 @@ def single_image_attack(dev, root: str, model: str = "resnet50"):
         top = seeded(image).topk(2).values[0]
     gap = max(float(top[0] - top[1]), 1.0)  # a gap under 1 saturates nothing
     weights = {k: v.cpu() for k, v in seeded.net.state_dict().items()}
-    weights["fc.weight"] = weights["fc.weight"] / gap
-    weights["fc.bias"] = weights["fc.bias"] / gap
+    head = [name for name, mod in seeded.net.named_modules() if isinstance(mod, torch.nn.Linear)][-1]
+    for key in (f"{head}.weight", f"{head}.bias"):
+        weights[key] = weights[key] / gap
     torch.save(weights, f"{root}/{model}_tempered.pth")
     del seeded, weights
     args = cli_main.build_argparser().parse_args(
@@ -649,8 +785,8 @@ def single_image_attack(dev, root: str, model: str = "resnet50"):
     print(f"single-image attack on {model}: wall {wall:.2f} s (victim build and weight load "
           f"included), label {int(label[0])} -> {int(attack_label[0])}, |adv - x|_inf "
           f"{linf:.6f} against eps {args.eps:.6f} (DDrague may exceed it), fused_perturb "
-          f"launches {perturb}, fused_adamw_project launches {adamw}; classifier divided by "
-          f"the top-2 logit gap {gap:.4f}, clean top-1 probability {p_max:.9f}")
+          f"launches {perturb}, fused_adamw_project launches {adamw}; classifier {head} "
+          f"divided by the top-2 logit gap {gap:.4f}, clean top-1 probability {p_max:.9f}")
     if adv.shape != x.shape or not bool(torch.isfinite(adv).all()):
         raise AssertionError(f"single-image attack: bad adversary {tuple(adv.shape)}")
     if not (float(adv.min()) >= 0 and float(adv.max()) <= 1):
@@ -685,16 +821,32 @@ def main() -> None:
     for name, out in native.build(native.SOURCES, ptxas_info=True).items():
         print(f"built {name} ({time.perf_counter() - t0:.1f} s)\n{out.strip()}")
 
-    kernels = [check_fused_perturb(dev), check_fused_adamw_project(dev)]
-    check_small_against_cpu(dev)
-    check_train_small_against_cpu(dev)
-    kernels[0]["launches"] = serve(dev)
-    kernels[1]["launches"] = train(dev) + learn_entry_points(dev)
+    walls = {"builds": time.perf_counter() - t0}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    kernels = [timed("fused_perturb check", check_fused_perturb, dev),
+               timed("fused_adamw_project check", check_fused_adamw_project, dev)]
+    timed("small-size checks", lambda: (check_small_against_cpu(dev),
+                                        check_train_small_against_cpu(dev),
+                                        check_families_against_cpu(dev)))
+    kernels[0]["launches"] = timed("serve", serve, dev)
+    kernels[1]["launches"] = (timed("train", train, dev)
+                              + timed("learn_dictionary", learn_entry_points, dev))
+    zoo_launches, zoo_err = timed("zoo", serve_zoo, dev)
+    kernels[0]["launches"] += zoo_launches
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], zoo_err)
     with tempfile.TemporaryDirectory() as root:
-        for phase in (demo_experiment, single_image_attack):
-            perturb, adamw = phase(dev, root)
+        for name, phase in (("demo experiment", demo_experiment),
+                            ("single image", single_image_attack)):
+            perturb, adamw = timed(name, phase, dev, root)
             kernels[0]["launches"] += perturb
             kernels[1]["launches"] += adamw
+    print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

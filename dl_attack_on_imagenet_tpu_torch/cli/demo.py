@@ -7,7 +7,7 @@ tiny victim on N seeded random images; otherwise the ImageNet folder under
 ``--data-root``, decoded by the native loader where it builds, else by PIL),
 and :func:`run_experiment` runs the experiment on any victim and dataset.
 
-Usage: python -m dl_attack_on_imagenet_tpu_torch.cli.demo --model resnet50 \
+Usage: python -m dl_attack_on_imagenet_tpu_torch.cli.demo [--model densenet] \
            --num-train-per-class 10 [--synthetic 0] [--device cpu]
 """
 
@@ -22,7 +22,8 @@ import numpy as np
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("adil-experiment")
     p.add_argument("--model", default="densenet",
-                   help="victim (the port has the ResNets and tiny so far)")
+                   help="victim: a name of models.MODEL_REGISTRY (default densenet, "
+                        "DenseNet-121)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--num-train-per-class", type=int, default=10)
     p.add_argument("--trained-classes", type=int, default=1000)
@@ -40,8 +41,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", type=int, default=0,
                    help=">0: use a synthetic dataset of this size and the tiny victim")
     p.add_argument("--input-size", type=int, default=None,
-                   help="victim input size; default 224 for every ImageNet victim "
-                        "(the reference's one Resize(256)+CenterCrop(224) transform)")
+                   help="victim input size; default 224 for every ImageNet victim, "
+                        "Inception included (the reference's one Resize(256)+CenterCrop(224) "
+                        "transform); 299 is Inception's native size")
     p.add_argument("--mixed-precision", action="store_true",
                    help="bfloat16 perturbation forwards (not ported yet)")
     from ._victim import add_victim_args

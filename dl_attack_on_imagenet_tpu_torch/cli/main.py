@@ -7,7 +7,7 @@ synthetic one where no ``--image`` is given) and attacks it with supervised
 DDrague; :func:`save_figure` draws the figure, with matplotlib imported
 there only. Panel captions name the model's own predictions.
 
-Usage: python -m dl_attack_on_imagenet_tpu_torch.cli.main --model resnet50 \
+Usage: python -m dl_attack_on_imagenet_tpu_torch.cli.main [--model mobilenet] \
            [--image path.JPEG] [--data-root ./data/ImageNet] [--device cpu]
 """
 
@@ -23,8 +23,7 @@ import torch
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("adil-demo")
     p.add_argument("--model", "-m", default="mobilenet",
-                   help="victim: resnet|densenet|googlenet|inception|mobilenet|vgg|vit "
-                        "(the port has the ResNets and tiny so far)")
+                   help="victim: resnet|densenet|googlenet|inception|mobilenet|vgg|vit")
     p.add_argument("--image", default=None, help="path to a JPEG to attack")
     p.add_argument("--data-root", default="./data/ImageNet")
     p.add_argument("--eps", type=float, default=8 / 255)
@@ -34,7 +33,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--input-size", type=int, default=None,
                    help="victim input size; default 224 for every ImageNet victim, "
-                        "the native size for the tiny test victim")
+                        "Inception included (299 is its native size), and the native "
+                        "size for the tiny test victim")
     from ._victim import add_victim_args
 
     add_victim_args(p)

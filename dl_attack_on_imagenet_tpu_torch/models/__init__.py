@@ -1,32 +1,55 @@
 """Victim models: torch classifiers behind a frozen NHWC wrapper.
 
-Port of ``dl_attack_on_imagenet_tpu/models/__init__.py`` for the ResNets and
-the tiny test CNN. A name picks a classifier, the ImageNet normalization is
-prepended, and the result is a frozen function from [0, 1] NHWC images to
-logits: eval mode, no weight gradients, weights in ``channels_last``. The
-other victims of the JAX package wait for ROADMAP.md queue 1 item 7.
+Port of ``dl_attack_on_imagenet_tpu/models/__init__.py``, with the same
+registry: the ResNets, DenseNet, GoogLeNet, Inception-v3, MobileNetV2, VGG,
+ViT and the tiny test CNN. A name picks a classifier, the ImageNet
+normalization is prepended, and the result is a frozen function from [0, 1]
+NHWC images to logits: eval mode, no weight gradients, weights in
+``channels_last``.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from .. import DeviceLike, resolve_device
-from .fold import fold_batchnorms_
+from .densenet import densenet121, densenet169
+from .fold import fold_batchnorms_, foldable
+from .googlenet import googlenet
+from .inception import inception_v3
 from .layers import IMAGENET_MEAN, IMAGENET_STD, Normalize
+from .mobilenet import mobilenet_v2
 from .resnet import resnet18, resnet34, resnet50
 from .tiny import tiny_cnn
+from .vgg import vgg11, vgg16, vgg19
+from .vit import SelfAttention, VisionTransformer, vit_b16, vit_tiny
 
-# name -> (constructor, default input size); 'resnet' means resnet18, as in
-# the reference CLI.
+# name -> (constructor, default input size), the JAX package's registry; the
+# short aliases are the reference CLI's names ('resnet' means resnet18).
 MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet": (resnet18, 224),
     "resnet18": (resnet18, 224),
     "resnet34": (resnet34, 224),
     "resnet50": (resnet50, 224),
+    "densenet": (densenet121, 224),
+    "densenet121": (densenet121, 224),
+    "densenet169": (densenet169, 224),
+    "googlenet": (googlenet, 224),
+    "inception": (inception_v3, 299),
+    "inception_v3": (inception_v3, 299),
+    "mobilenet": (mobilenet_v2, 224),
+    "mobilenet_v2": (mobilenet_v2, 224),
+    "vgg": (vgg11, 224),
+    "vgg11": (vgg11, 224),
+    "vgg16": (vgg16, 224),
+    "vgg19": (vgg19, 224),
+    "vit": (vit_b16, 224),
+    "vit_b16": (vit_b16, 224),
+    "vit_tiny": (vit_tiny, 224),
     "tiny": (tiny_cnn, 32),
 }
 
@@ -94,21 +117,31 @@ class VictimModel(nn.Module):
         return torch.argmax(self(x), dim=-1)
 
 
-def _init_weights(net: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights (no pretrained weights ship with the repo)."""
+def _init_weights(net: nn.Module, generator: torch.Generator, conv_fan: str) -> None:
+    """Seeded random weights (no pretrained weights ship with the repo): He
+    normal convolutions over ``conv_fan`` ("fan_out" or "fan_in"), BatchNorm
+    and LayerNorm at 1 and 0, linear layers N(0, 0.01), ViT's attention
+    Xavier-uniform, its class token 0 and its position embedding
+    N(0, 0.02)."""
     with torch.no_grad():
         for mod in net.modules():
             if isinstance(mod, nn.Conv2d):
-                nn.init.kaiming_normal_(mod.weight, mode="fan_out",
+                nn.init.kaiming_normal_(mod.weight, mode=conv_fan,
                                         nonlinearity="relu", generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
             elif isinstance(mod, nn.Linear):
                 nn.init.normal_(mod.weight, std=0.01, generator=generator)
                 mod.bias.zero_()
+            elif isinstance(mod, SelfAttention):
+                nn.init.xavier_uniform_(mod.in_proj_weight, generator=generator)
+                mod.in_proj_bias.zero_()
+            elif isinstance(mod, VisionTransformer):
+                mod.class_token.zero_()
+                nn.init.normal_(mod.encoder.pos_embedding, std=0.02, generator=generator)
 
 
 def create_model(
@@ -122,35 +155,49 @@ def create_model(
     seed: int = 0,
     device: DeviceLike = None,
     fold_bn: bool = False,
+    **model_kwargs,
 ) -> VictimModel:
     """Build a frozen victim by registry name.
 
     Without ``state_dict`` the weights are random, drawn on ``device`` from
     a generator seeded with ``seed``. ``device`` defaults to CUDA and raises
     where there is none; pass ``device="cpu"`` for a CPU victim.
-    ``fold_bn=True`` folds a ResNet's BatchNorms into its convolutions once
-    its weights are set (``models.fold``, which also folds a built victim).
+    ``fold_bn=True`` folds the BatchNorms of a ResNet, GoogLeNet,
+    Inception-v3 or MobileNetV2 into its convolutions once its weights are
+    set (``models.fold``, which also folds a built victim). VGG and ViT are
+    built for their input size; ``model_kwargs`` go to the constructor
+    (``hidden`` for VGG, ``transform_input`` for GoogLeNet and Inception).
     """
     key = name.lower()
     if key not in MODEL_REGISTRY:
-        raise ValueError(f"model '{name}' is not ported yet (ROADMAP.md queue 1 item 7); "
-                         f"ported: {sorted(MODEL_REGISTRY)}")
-    if fold_bn and "resnet" not in key:
-        raise ValueError(f"model '{name}' has no folded form in the port")
+        raise ValueError(f"unknown model '{name}'; known: {sorted(MODEL_REGISTRY)}")
+    if fold_bn and not foldable(key):
+        raise ValueError(f"model '{name}' has no folded form")
     dev = resolve_device(device)
     ctor, default_size = MODEL_REGISTRY[key]
+    size = input_size or default_size
     if key == "tiny":
         num_classes, normalize = min(num_classes, 10), False
+    if "input_size" in inspect.signature(ctor).parameters:
+        model_kwargs["input_size"] = size
     with torch.device(dev):
-        net = ctor(num_classes=num_classes)
+        net = ctor(num_classes=num_classes, **model_kwargs)
     if state_dict is None:
-        _init_weights(net, torch.Generator(device=dev).manual_seed(seed))
+        # The ResNets and the tiny CNN keep the fan_out rule they were first
+        # drawn with. Under it, with BatchNorm at its identity statistics, a
+        # random MobileNetV2's logits vanish (about 1e-9: a depthwise
+        # kernel's fan_out counts every group) and a random DenseNet's blow
+        # up (1e5 and more: each 1x1 conv reads all the concatenated
+        # features), so the other families draw over fan_in, which keeps
+        # their activations near unit scale.
+        conv_fan = "fan_out" if key.startswith("resnet") or key == "tiny" else "fan_in"
+        _init_weights(net, torch.Generator(device=dev).manual_seed(seed), conv_fan)
     else:
         net.load_state_dict(state_dict)
     if fold_bn:
         fold_batchnorms_(net)
     net = net.to(memory_format=torch.channels_last)
-    victim = VictimModel(key, net, input_size or default_size, normalize, mean, std)
+    victim = VictimModel(key, net, size, normalize, mean, std)
     victim.to(dev)
     victim.eval()
     victim.requires_grad_(False)
@@ -158,4 +205,6 @@ def create_model(
 
 
 __all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size", "create_model",
-           "fast_victim_kwargs", "resnet18", "resnet34", "resnet50", "tiny_cnn"]
+           "densenet121", "densenet169", "fast_victim_kwargs", "googlenet", "inception_v3",
+           "mobilenet_v2", "resnet18", "resnet34", "resnet50", "tiny_cnn", "vgg11", "vgg16",
+           "vgg19", "vit_b16", "vit_tiny"]

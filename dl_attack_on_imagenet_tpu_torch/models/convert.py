@@ -6,10 +6,13 @@ as nested dicts of numpy arrays and returns the ``state_dict`` of the
 matching port module (torchvision names). Modules are mapped by their Flax
 names: Flax numbers submodules ``Class_N`` in call order within each parent,
 so ``Bottleneck_7`` is the eighth block whatever order the dict keys come
-in. Convolution kernels go HWIO -> OIHW and dense kernels are transposed.
+in. Convolution kernels go HWIO -> OIHW and dense kernels are transposed;
+ViT's per-head query, key and value kernels are packed into
+``in_proj_weight``.
 
 ``load_torch_checkpoint`` loads a torchvision ``state_dict`` saved with
-``torch.save`` into a port victim.
+``torch.save`` into a port victim, less the auxiliary heads that the
+victims omit (GoogLeNet's ``aux1``/``aux2``, Inception's ``AuxLogits``).
 
 ``train_state_from_jax`` takes a JAX ``AdilState`` with numpy leaves and
 returns the port's ``TrainState``, so that both packages can start training
@@ -27,6 +30,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..attacks.adil_core import TrainState
+from .vgg import CFGS as _VGG_CFGS
 
 
 def _numbered(tree: Dict, cls: str) -> List[str]:
@@ -59,11 +63,24 @@ def _bn(out: Dict, name: str, p: Dict, stats: Dict) -> None:
     out[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
+def _ln(out: Dict, name: str, p: Dict) -> None:
+    out[f"{name}.weight"] = _tensor(p["scale"])
+    out[f"{name}.bias"] = _tensor(p["bias"])
+
+
 def _conv_bn(out: Dict, conv: str, bn: str, p: Dict, stats: Dict) -> None:
     if "Conv_0" not in p or "BatchNorm_0" not in p:
-        raise ValueError("folded-BN victims are not ported yet")
+        raise ValueError("convert the unfolded victim and fold the port's "
+                         "(models.fold.fold_victim)")
     _conv(out, conv, p["Conv_0"])
     _bn(out, bn, p["BatchNorm_0"], stats["BatchNorm_0"])
+
+
+def _basic_convs(out: Dict, prefix: str, names, params: Dict, stats: Dict) -> None:
+    """``ConvBN_j`` of ``params`` into the ``BasicConv2d`` named ``names[j]``."""
+    for j, name in enumerate(names):
+        _conv_bn(out, f"{prefix}{name}.conv", f"{prefix}{name}.bn",
+                 params[f"ConvBN_{j}"], stats[f"ConvBN_{j}"])
 
 
 def _resnet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
@@ -93,28 +110,180 @@ def _resnet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _densenet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "features.conv0", params["Conv_0"])
+    _bn(out, "features.norm0", params["BatchNorm_0"], stats["BatchNorm_0"])
+    block, layer, prev = 0, 0, None
+    for key in _numbered(params, "DenseLayer"):
+        p, s = params[key], stats[key]
+        # Flax numbers the layers across blocks: a layer opens a new block
+        # where its input is not the previous layer's input plus its growth.
+        cin = np.shape(p["BatchNorm_0"]["scale"])[0]
+        growth = np.shape(p["Conv_1"]["kernel"])[-1]
+        if prev is None or cin != prev + growth:
+            block, layer = block + 1, 0
+        layer, prev = layer + 1, cin
+        prefix = f"features.denseblock{block}.denselayer{layer}"
+        _bn(out, f"{prefix}.norm1", p["BatchNorm_0"], s["BatchNorm_0"])
+        _conv(out, f"{prefix}.conv1", p["Conv_0"])
+        _bn(out, f"{prefix}.norm2", p["BatchNorm_1"], s["BatchNorm_1"])
+        _conv(out, f"{prefix}.conv2", p["Conv_1"])
+    for t, key in enumerate(_numbered(params, "Transition")):
+        _bn(out, f"features.transition{t + 1}.norm", params[key]["BatchNorm_0"],
+            stats[key]["BatchNorm_0"])
+        _conv(out, f"features.transition{t + 1}.conv", params[key]["Conv_0"])
+    _bn(out, "features.norm5", params["BatchNorm_1"], stats["BatchNorm_1"])
+    _dense(out, "classifier", params["Dense_0"])
+    return out
+
+
+def _mobilenet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _conv_bn(out, "features.0.0", "features.0.1", params["ConvBN_0"], stats["ConvBN_0"])
+    blocks = _numbered(params, "InvertedResidual")
+    for i, key in enumerate(blocks):
+        p, s = params[key], stats[key]
+        convs = _numbered(p, "ConvBN")
+        prefix = f"features.{i + 1}.conv"
+        for j, c in enumerate(convs[:-1]):  # ConvBNReLU6 blocks: (conv, BN) inside
+            _conv_bn(out, f"{prefix}.{j}.0", f"{prefix}.{j}.1", p[c], s[c])
+        j = len(convs) - 1  # the linear projection: conv and BN side by side
+        _conv_bn(out, f"{prefix}.{j}", f"{prefix}.{j + 1}", p[convs[-1]], s[convs[-1]])
+    last = f"features.{len(blocks) + 1}"
+    _conv_bn(out, f"{last}.0", f"{last}.1", params["ConvBN_1"], stats["ConvBN_1"])
+    _dense(out, "classifier.1", params["Dense_0"])
+    return out
+
+
+_GOOGLENET_BLOCKS = ("3a", "3b", "4a", "4b", "4c", "4d", "4e", "5a", "5b")
+_GOOGLENET_BRANCHES = ("branch1", "branch2.0", "branch2.1", "branch3.0", "branch3.1",
+                       "branch4.1")
+
+
+def _googlenet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _basic_convs(out, "", ("conv1", "conv2", "conv3"), params, stats)
+    for i, name in enumerate(_GOOGLENET_BLOCKS):
+        key = f"InceptionBlock_{i}"
+        _basic_convs(out, f"inception{name}.", _GOOGLENET_BRANCHES, params[key], stats[key])
+    _dense(out, "fc", params["Dense_0"])
+    return out
+
+
+# Each Inception block's convolutions in the order the JAX module calls them.
+_INCEPTION_BLOCKS = {
+    "InceptionA": (("5b", "5c", "5d"), (
+        "branch1x1", "branch5x5_1", "branch5x5_2", "branch3x3dbl_1", "branch3x3dbl_2",
+        "branch3x3dbl_3", "branch_pool")),
+    "InceptionB": (("6a",), ("branch3x3", "branch3x3dbl_1", "branch3x3dbl_2",
+                             "branch3x3dbl_3")),
+    "InceptionC": (("6b", "6c", "6d", "6e"), (
+        "branch1x1", "branch7x7_1", "branch7x7_2", "branch7x7_3", "branch7x7dbl_1",
+        "branch7x7dbl_2", "branch7x7dbl_3", "branch7x7dbl_4", "branch7x7dbl_5", "branch_pool")),
+    "InceptionD": (("7a",), ("branch3x3_1", "branch3x3_2", "branch7x7x3_1", "branch7x7x3_2",
+                             "branch7x7x3_3", "branch7x7x3_4")),
+    "InceptionE": (("7b", "7c"), (
+        "branch1x1", "branch3x3_1", "branch3x3_2a", "branch3x3_2b", "branch3x3dbl_1",
+        "branch3x3dbl_2", "branch3x3dbl_3a", "branch3x3dbl_3b", "branch_pool")),
+}
+
+
+def _inception(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _basic_convs(out, "", ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
+                           "Conv2d_4a_3x3"), params, stats)
+    for cls, (mixed, convs) in _INCEPTION_BLOCKS.items():
+        for key, name in zip(_numbered(params, cls), mixed):
+            _basic_convs(out, f"Mixed_{name}.", convs, params[key], stats[key])
+    _dense(out, "fc", params["Dense_0"])
+    return out
+
+
+def _vgg(params: Dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    convs = iter(_numbered(params, "Conv"))
+    n_convs = len(_numbered(params, "Conv"))
+    cfg = next(c for c in _VGG_CFGS.values() if sum(v != "M" for v in c) == n_convs)
+    index = 0  # torchvision's features: (conv, ReLU) a layer, one module a pool
+    for item in cfg:
+        if item != "M":
+            _conv(out, f"features.{index}", params[next(convs)])
+        index += 1 if item == "M" else 2
+    for j, key in enumerate(_numbered(params, "Dense")):
+        _dense(out, f"classifier.{3 * j}", params[key])
+    return out
+
+
+def _vit(params: Dict) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "conv_proj", params["Conv_0"])
+    out["class_token"] = _tensor(params["cls_token"])
+    out["encoder.pos_embedding"] = _tensor(params["pos_embedding"])
+    for i, key in enumerate(_numbered(params, "EncoderBlock")):
+        p, pre = params[key], f"encoder.layers.encoder_layer_{i}"
+        _ln(out, f"{pre}.ln_1", p["LayerNorm_0"])
+        attn = p["MultiHeadDotProductAttention_0"]
+        d = np.shape(attn["query"]["kernel"])[0]
+        # (d, heads, head_dim) kernels -> rows of the packed (3d, d) weight.
+        qkv = ("query", "key", "value")
+        out[f"{pre}.self_attention.in_proj_weight"] = _tensor(np.concatenate(
+            [np.reshape(attn[n]["kernel"], (d, d)).T for n in qkv]))
+        out[f"{pre}.self_attention.in_proj_bias"] = _tensor(np.concatenate(
+            [np.reshape(attn[n]["bias"], (d,)) for n in qkv]))
+        out[f"{pre}.self_attention.out_proj.weight"] = _tensor(
+            np.reshape(attn["out"]["kernel"], (d, d)).T)
+        out[f"{pre}.self_attention.out_proj.bias"] = _tensor(attn["out"]["bias"])
+        _ln(out, f"{pre}.ln_2", p["LayerNorm_1"])
+        _dense(out, f"{pre}.mlp.0", p["MlpBlock_0"]["Dense_0"])
+        _dense(out, f"{pre}.mlp.3", p["MlpBlock_0"]["Dense_1"])
+    _ln(out, "encoder.ln", params["LayerNorm_0"])
+    _dense(out, "heads.head", params["Dense_0"])
+    return out
+
+
+# A family's first numbered submodule -> its converter.
+_FAMILIES = (("Bottleneck", _resnet), ("BasicBlock", _resnet), ("DenseLayer", _densenet),
+             ("InvertedResidual", _mobilenet), ("InceptionBlock", _googlenet),
+             ("InceptionA", _inception))
+
+
 def state_dict_from_flax(variables_np: Dict) -> Dict[str, torch.Tensor]:
     """The port module's ``state_dict`` for a JAX victim's variables.
 
-    Supports the ResNets (18/34/50) and the tiny CNN.
+    Supports every victim of the registry: the ResNets, DenseNet,
+    MobileNetV2, GoogLeNet, Inception-v3, VGG, ViT and the tiny CNN.
     """
     params = variables_np["params"]
+    stats = variables_np.get("batch_stats", {})
     if "Conv_0" in params and "Dense_0" in params and len(params) == 3:
         out: Dict[str, torch.Tensor] = {}
         _conv(out, "conv0", params["Conv_0"])
         _conv(out, "conv1", params["Conv_1"])
         _dense(out, "fc", params["Dense_0"])
         return out
-    if _numbered(params, "Bottleneck") or _numbered(params, "BasicBlock"):
-        return _resnet(params, variables_np.get("batch_stats", {}))
+    for cls, convert in _FAMILIES:
+        if _numbered(params, cls):
+            return convert(params, stats)
+    if _numbered(params, "EncoderBlock"):
+        return _vit(params)
+    if _numbered(params, "Conv") and len(_numbered(params, "Dense")) == 3:
+        return _vgg(params)
     raise ValueError(f"unrecognised victim variables: {sorted(params)}")
+
+
+_AUX_PREFIXES = ("AuxLogits.", "aux1.", "aux2.")
 
 
 def load_torch_checkpoint(path: str, victim):
     """Load a ``torch.save``d torchvision ``state_dict`` into ``victim`` in
-    place and return it; the port's modules use torchvision's names, so no
-    conversion is needed."""
-    victim.net.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    place and return it. The port's modules use torchvision's names, so no
+    conversion is needed; the auxiliary heads' keys, which the victims do
+    not have, are dropped first, as the JAX package drops them."""
+    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    victim.net.load_state_dict({
+        k: v for k, v in state_dict.items()
+        if not any(k.startswith(p) or f".{p}" in k for p in _AUX_PREFIXES)})
     return victim
 
 

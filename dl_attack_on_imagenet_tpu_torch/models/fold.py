@@ -6,14 +6,28 @@ eval mode, so each BatchNorm is a fixed per-channel affine map and folds
 into the preceding convolution: ``weight' = weight * s`` and
 ``bias' = (bias - mean) * s + beta`` with ``s = gamma / sqrt(var + eps)``.
 Each BatchNorm's own ``eps`` is used, which is the per-model eps of the JAX
-package (1e-5 for the ResNets). The folded victim skips one elementwise
-pass over every activation, forward and backward.
+package (1e-5 for the ResNets and MobileNetV2, 1e-3 for GoogLeNet and
+Inception-v3). The folded victim skips one elementwise pass over every
+activation, forward and backward.
+
+Only conv -> BN victims fold: the ResNets, GoogLeNet, Inception-v3 and
+MobileNetV2. DenseNet is pre-activation (BN -> ReLU -> conv), so the ReLU
+between a BatchNorm and the next convolution blocks the fold; VGG and ViT
+have no BatchNorm.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+_FOLDABLE = ("resnet", "googlenet", "inception", "mobilenet")
+
+
+def foldable(name: str) -> bool:
+    """Whether the registry's victim ``name`` has a folded form."""
+    return name.lower().startswith(_FOLDABLE)
 
 
 @torch.no_grad()
@@ -44,6 +58,9 @@ def fold_batchnorms_(net: nn.Module) -> nn.Module:
 
 def fold_victim(victim):
     """Fold ``victim``'s BatchNorms into its convolutions, in place, and
-    return it; its logits match the unfolded ones to fp32 rounding."""
+    return it; its logits match the unfolded ones to fp32 rounding. Raises
+    ``ValueError`` for a victim with no folded form."""
+    if not foldable(victim.name):
+        raise ValueError(f"model '{victim.name}' has no folded form")
     fold_batchnorms_(victim.net)
     return victim

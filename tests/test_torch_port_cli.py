@@ -109,8 +109,8 @@ def test_weights_give_the_jax_checkpoints_logits(checkpoint, capsys, fast):
 
 
 def test_build_victim_names_what_is_not_ported():
-    with pytest.raises(ValueError, match="not ported yet .ROADMAP.md queue 1 item 7"):
-        build_victim(_victim_args(model="mobilenet"))
+    with pytest.raises(ValueError, match="unknown model 'alexnet'"):
+        build_victim(_victim_args(model="alexnet"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_victim(_victim_args(device="cuda"))
@@ -176,7 +176,7 @@ def test_demo_main_runs_end_to_end_on_the_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("extra,error", [
     (["--synthetic", "8", "--distributed"], "queue 1 item 6"),
     (["--synthetic", "8", "--mixed-precision"], "queue 1 item 2"),
-    ([], "not ported yet .ROADMAP.md queue 1 item 7"),  # the default model, densenet
+    (["--model", "alexnet"], "unknown model 'alexnet'"),
 ])
 def test_demo_names_what_is_not_ported(extra, error):
     args = demo.build_argparser().parse_args(extra + ["--device", "cpu"])
@@ -192,6 +192,27 @@ def test_cli_main_draws_a_png(tmp_path, monkeypatch):
     out = main.main(args)  # no dictionary yet: ADIL learns one on the image first
     assert out == str(tmp_path / "fig.png") and os.path.getsize(out) > 1000
     assert ArtifactCache(str(tmp_path / "dicts")).exists("ImageNet", model="tiny")
+
+
+def test_cli_main_runs_its_default_model_on_the_cpu(tmp_path, monkeypatch, capsys):
+    # MobileNetV2, cli.main's default victim, at 32x32 with matplotlib
+    # blocked: the dictionary is learned on the image first, then the figure
+    # step fails on the import alone.
+    import sys
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    args = main.build_argparser().parse_args(
+        ["--input-size", "32", "--steps-inference", "3", "--device", "cpu",
+         "--dict-dir", str(tmp_path / "dicts"), "--out", str(tmp_path / "fig.png")])
+    assert args.model == "mobilenet"
+    x, adv, label, attack_label = main.attack_image(args)
+    assert adv.shape == x.shape == (1, 32, 32, 3) and bool(torch.isfinite(adv).all())
+    assert float(adv.min()) >= 0 and float(adv.max()) <= 1
+    assert label.shape == attack_label.shape == (1,)
+    assert ArtifactCache(str(tmp_path / "dicts")).exists("ImageNet", model="mobilenet")
+    with pytest.raises(ImportError):
+        main.save_figure(args, x, adv, label, attack_label)
 
 
 def test_attack_image_reads_a_jpeg_and_a_saved_dictionary(tmp_path, monkeypatch, capsys):

@@ -2,8 +2,9 @@
 (atol 1e-5: the kernel and cuBLAS sum the K products in other orders),
 fused_adamw_project against its twin (p and mu within 1e-6, nu within 1e-6
 relative: elementwise fp32 in the twin's order), their launch counts, the
-wrappers' refusals, and three training steps on the card against the CPU.
-Every test here needs a GPU and skips without one.
+wrappers' refusals, three training steps on the card against the CPU, and
+every victim family's logits and CW input gradient on the card against the
+CPU (within 1e-4). Every test here needs a GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -18,6 +19,7 @@ from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
 from dl_attack_on_imagenet_tpu_torch.models import create_model
 from dl_attack_on_imagenet_tpu_torch.ops import kernels, native
 from dl_attack_on_imagenet_tpu_torch.ops import (
+    attack_loss,
     dict_apply,
     fused_adamw_project,
     fused_adamw_project_reference,
@@ -68,6 +70,8 @@ def _max_k():
     (64, 100, 3 * 1028, 8 / 255, 0.01, 0),             # M % 4 == 0, not a whole tile
     (64, 100, 3 * 1028, 8 / 255, 0.01, 1),             # x not 16-byte aligned
     (64, 100, 3 * 1028, 0.0, 0.01, 0),                 # eps = 0: out is x
+    (64, 100, 299 * 299 * 3, 8 / 255, 0.01, 0),        # Inception at 299: M odd, scalar
+    (5, 100, 299 * 299 * 3, float("inf"), 0.01, 0),    # instance, full rows
 ])
 def test_cuda_kernel_matches_plain_twin(cuda, n, k, m, eps, v_scale, x_offset):
     k = _max_k() if k == "max" else k
@@ -255,3 +259,42 @@ def test_run_experiment_on_the_card_matches_the_cpu(cuda, tmp_path):
         for metric in ("fooling_rate", "rmse", "mse"):
             np.testing.assert_allclose(got[split][metric][key], want[split][metric][key],
                                        atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,size", [("densenet121", 32), ("mobilenet_v2", 32),
+                                       ("googlenet", 32), ("inception_v3", 75),
+                                       ("vgg11", 32), ("vit_tiny", 32)])
+def test_victim_family_on_the_card_matches_the_cpu(cuda, name, size):
+    # Logits and the CW-loss input gradient within 1e-4: cuDNN's depthwise,
+    # grouped and padded-pool kernels sum in other orders than the CPU.
+    victim_cpu = create_model(name, input_size=size, device="cpu", seed=1)
+    victim_dev = create_model(name, input_size=size, device=cuda,
+                              state_dict=victim_cpu.net.state_dict())
+    x = torch.rand((2, size, size, 3), generator=torch.Generator().manual_seed(3))
+    labels = torch.tensor([1, 3])
+    out = []
+    for victim, dev in ((victim_cpu, "cpu"), (victim_dev, cuda)):
+        xt = x.to(dev).requires_grad_(True)
+        logits = victim(xt)
+        (grad,) = torch.autograd.grad(attack_loss(logits, labels.to(dev), loss="logits"), xt)
+        out.append((logits.detach().cpu(), grad.cpu()))
+    assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-4
+    assert float((out[0][1] - out[1][1]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("side", [2, 8, 17, 35])
+def test_inception_average_pool_gradient_on_the_card(cuda, side):
+    # Inception's padded 3x3 average pool on a channels_last tensor: its
+    # backward runs the forward kernel, as PyTorch's own CUDA backward of
+    # avg_pool2d with padding is wrong for channels_last.
+    from dl_attack_on_imagenet_tpu_torch.models.inception import _avg_pool
+
+    g = torch.Generator().manual_seed(side)
+    x = torch.randn((2, 64, side, side), generator=g)
+    grad_out = torch.randn((2, 64, side, side), generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        xt = x.to(dev).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        (grad,) = torch.autograd.grad(_avg_pool(xt), xt, grad_out.to(dev))
+        grads.append(grad.cpu())
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-6

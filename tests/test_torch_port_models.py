@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from dl_attack_on_imagenet_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 from dl_attack_on_imagenet_tpu.ops import attack_loss as jax_attack_loss
 from dl_attack_on_imagenet_tpu_torch.models import MODEL_REGISTRY, create_model
 from dl_attack_on_imagenet_tpu_torch.models.tiny import same_pads
@@ -57,9 +58,12 @@ def test_seeded_weights_are_reproducible():
 
 
 def test_registry_and_unported_names():
-    assert set(MODEL_REGISTRY) == {"resnet", "resnet18", "resnet34", "resnet50", "tiny"}
-    with pytest.raises(ValueError, match="not ported yet"):
-        create_model("vgg16", device="cpu")
+    assert {k: size for k, (_, size) in MODEL_REGISTRY.items()} == {
+        k: size for k, (_, size) in JAX_REGISTRY.items()}
+    for key, (ctor, _) in MODEL_REGISTRY.items():
+        assert ctor.__name__ == JAX_REGISTRY[key][0].__name__
+    with pytest.raises(ValueError, match="unknown model 'alexnet'"):
+        create_model("alexnet", device="cpu")
 
 
 def test_same_pads_match_xla():
