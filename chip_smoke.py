@@ -42,7 +42,29 @@ phase, and exits non-zero if any phase fails:
    the single-image attack of ``cli.main`` on its default victim,
    MobileNetV2, with the dictionary that run saved, and prints each stage's
    wall, the metrics and the results file;
-9. prints the whole run's time and one ``{"kernels": [...]}`` line, then the
+9. runs the bf16 mixed precision (``perturb_dtype="bfloat16"``) on
+   ResNet-50 beside fp32 at the training and serving configuration: 10
+   chained ``gd`` steps after a warm-up, a supervised DDrague batch and a
+   supervised AdamW-codes batch of 64, each timed in both precisions after
+   a warm-up at the JAX package's own 5 solver steps, the bf16 losses
+   within rtol 0.02 of fp32's, the 5-step adversaries within 0.05 of
+   fp32's, every adversary in [0, 1] (AdamW's inside eps + 1e-5), the
+   master state fp32 and the same launches as fp32;
+10. learns data-parallel at world size 1 over NCCL: ``ADIL(mesh=data_mesh())``
+   on ResNet-50 at 224x224, 128 seeded images, b64, 2 epochs with a
+   checkpoint after each, ``check_mesh`` first; D and v within 1e-5 of the
+   serial replay of the same plan (``make_dp_replay_epoch_fn``), both under
+   deterministic cuDNN, and the replay's spread without it, the sharded
+   accuracy equal to the unsharded one, 2 ``fused_adamw_project`` launches
+   a step;
+11. learns data-parallel at 2 ranks on the one card over gloo (NCCL puts no
+   two ranks on one card): two spawned ranks (``chip_smoke.py --dp-rank R
+   DIR DEVICE``) on the tiny victim at 32x32, K=100, 32 images, b16, 2
+   epochs, both on ``cuda:0``; both ranks' D and v identical, and within
+   1e-5 of the replay on the card;
+12. runs the experiment of phase 8 once more with ``--distributed
+   --mixed-precision``;
+13. prints the whole run's time and one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Each path runs with the kernels' launch counts set to 0 just before it, and
@@ -50,14 +72,19 @@ fails if a kernel of that path was not launched as often as the path must.
 
 Precision: matmuls and cuDNN convolutions both run in true fp32 here
 (``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False``); the dictionary contractions
-refuse to run with matmul TF32 on, whatever the caller sets.
+``torch.backends.cudnn.allow_tf32 = False``), and bf16 products sum in fp32
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+False``); the dictionary contractions refuse to run otherwise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import socket
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -663,13 +690,14 @@ def learn_entry_points(dev, model: str = "resnet50", size: int = 224, n: int = 1
 
 def demo_experiment(dev, root: str, model: str = "densenet", size: int = 224, k: int = 100,
                     n_images: int = 96, per_class=(64, 2, 5), steps: int = 2,
-                    batch: int = 64):
+                    batch: int = 64, extra=()):
     """The experiment of ``cli.demo`` through its ``run_experiment`` on its
     default victim, DenseNet-121 (``--model densenet``), at 224x224 with
     seeded random weights: K=100, kappa 50, eps
     8/255 l∞, CW loss, 2 epochs at batch 64, 100 DDrague steps a served
     batch. The data are 96 seeded U(0, 1) images labelled by the victim; the
     rows of its most-predicted label are split [64, 2, 5] as one class.
+    ``extra`` adds ``cli.demo`` flags (``--distributed --mixed-precision``).
     Returns the (fused_perturb, fused_adamw_project) launches of the run.
     (The keyword arguments shrink the run for a rehearsal on the CPU.)"""
     import numpy as np
@@ -685,7 +713,7 @@ def demo_experiment(dev, root: str, model: str = "densenet", size: int = 224, k:
         "--model", model, "--seed", "0", "--n-atoms", str(k), "--kappa", "50",
         "--eps", repr(EPS), "--steps", str(steps), "--batch-size", str(batch),
         "--steps-inference", "100", "--device", str(dev), "--dict-dir", f"{root}/dicts",
-        "--results-dir", f"{root}/results"])
+        "--results-dir", f"{root}/results", *extra])
     victim = build_victim(args)
     images = np.random.default_rng(0).random((n_images, size, size, 3), dtype=np.float32)
     labels = core.predict_labels(victim, torch.as_tensor(images, device=dev)).cpu().numpy()
@@ -713,7 +741,7 @@ def demo_experiment(dev, root: str, model: str = "densenet", size: int = 224, k:
     perturb, adamw = fused_perturb.launches, fused_adamw_project.launches
     path = f"{root}/results/results_{model}_seed0.msgpack"
     saved = load_artifact(path)
-    print(f"demo experiment on {model} at {size}x{size}, K={k}: wall {wall:.2f} s, accuracy "
+    print(f"demo experiment{''.join(' ' + flag for flag in extra)} on {model} at {size}x{size}, K={k}: wall {wall:.2f} s, accuracy "
           f"{results['accuracy']:.4f} on {len(dataset)} rows; fused_perturb launches {perturb} "
           f"(the path makes {want_perturb}), fused_adamw_project launches {adamw} "
           f"(the path makes {want_adamw}); results file {path} ({len(saved)} keys)")
@@ -800,6 +828,317 @@ def single_image_attack(dev, root: str, model: str = "mobilenet", dictionary_of:
     return perturb, adamw
 
 
+def _set_precision() -> None:
+    """True fp32 matmuls and convolutions, bf16 products summed in fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def mixed_precision(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100,
+                    steps_inference: int = 30):
+    """bf16 beside fp32 on ResNet-50: 10 chained ``gd`` steps after one
+    warm-up from one initial state, then a supervised DDrague batch and a
+    supervised AdamW-codes batch through the ADIL entry points. Returns the
+    (fused_perturb, fused_adamw_project) launches of the timed runs. (The
+    keyword arguments shrink the run for a rehearsal on the CPU.)"""
+    import dataclasses
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    n_steps = 10
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    cfg32 = core.AdilConfig(eps=EPS, norm="linf", n_atoms=k, loss="logits", kappa=50.0,
+                            step_size=0.01, batch_size=n)
+    g = torch.Generator(device=dev).manual_seed(1)
+    images = torch.rand((n, size, size, 3), generator=g, device=dev)
+    start = core.init_state(g, (size, size, 3), n, cfg32)
+    labels = core.predict_labels(victim, images)
+    idx, mask = torch.arange(n, device=dev), torch.ones(n, device=dev)
+    runs, adamw = {}, 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg32, perturb_dtype=dtype)
+        state = core.TrainState(**{key: (val.clone() if torch.is_tensor(val) else val)
+                                   for key, val in vars(start).items()})
+        core.make_train_step(victim, cfg, "both")(state, images, labels, idx, mask)  # warm-up
+        scan = core.make_train_scan(victim, cfg, "both", n_steps=n_steps)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        losses, foolings = scan(state, images, labels, idx, mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_adamw_project.launches
+        adamw += launches
+        runs[dtype] = losses
+        print(f"mixed precision, gd step in {dtype} on {model} at b{n} K={k} {size}x{size}: "
+              f"{wall / n_steps * 1e3:.2f} ms/step over {n_steps} chained steps, "
+              f"fused_adamw_project launches {launches}; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, fooling {int(foolings[-1])}/{n}")
+        if launches != 2 * n_steps:
+            raise AssertionError(f"{dtype} train: {launches} launches in {n_steps} steps")
+        if not all(t.dtype == torch.float32 for t in (state.d, state.v, state.d_mu, state.v_nu)):
+            raise AssertionError(f"{dtype} train: the master state left fp32")
+        _check_trained(f"{dtype} train", state.d, state.v, EPS)
+    rel = float(((runs["bfloat16"] - runs["float32"]).abs() / runs["float32"].abs()).max())
+    print(f"  bf16 losses against fp32: max relative difference {rel:.3e} (tol 0.02)")
+    if not rel <= 0.02:
+        raise AssertionError(f"bf16 training left fp32's losses: {rel}")
+
+    # The solvers: first a run at the JAX package's own bf16-against-fp32
+    # configuration (5 steps, tests/test_mixed_precision.py), which is also
+    # the warm-up and is held to its 0.05; then the timed run at the served
+    # one (30 DDrague steps, 100 AdamW code steps), whose trajectories have
+    # had 6 to 20 times the steps to part: its difference is printed.
+    perturb = 0
+    short = dict(steps_inference=5, steps_code=5)
+    with tempfile.TemporaryDirectory() as root:
+        cache = ArtifactCache(root)
+        victim, images = _served_inputs(dev, model, size, cache, n=n, k=k)
+        for mode in ("supervised", "supervised_adamw"):
+            adv, adv_short = {}, {}
+            for dtype in ("float32", "bfloat16"):
+                attack = ADIL(victim, eps=EPS, n_atoms=k, loss="logits",
+                              steps_inference=steps_inference, cache=cache, perturb_dtype=dtype)
+                run = attack.forward_supervised_adamw if mode == "supervised_adamw" else attack
+                full_cfg = attack.cfg
+                attack.cfg = dataclasses.replace(full_cfg, **short)
+                adv_short[dtype] = run(images)
+                attack.cfg = full_cfg
+                torch.cuda.synchronize()
+                _zero_counts()
+                t0 = time.perf_counter()
+                adv[dtype] = run(images)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = (fused_perturb.launches, fused_adamw_project.launches)
+                perturb += launches[0]
+                linf = float((adv[dtype] - images).abs().max())
+                print(f"mixed precision, serve {mode} in {dtype}: wall {wall:.3f} s, launches "
+                      f"{launches[0]} / {launches[1]}, |adv - x|_inf {linf:.6f}")
+                if launches != (1, 0):
+                    raise AssertionError(f"{mode} {dtype}: launches {launches}, the path makes 1 / 0")
+                a = adv[dtype]
+                if a.dtype != torch.float32 or not bool(torch.isfinite(a).all()) or not (
+                        float(a.min()) >= 0 and float(a.max()) <= 1):
+                    raise AssertionError(f"{mode} {dtype}: bad adversaries")
+                if mode == "supervised_adamw" and not linf <= EPS + 1e-5:
+                    raise AssertionError(f"{mode} {dtype}: l∞ budget broken: {linf}")
+            diff_short = float((adv_short["bfloat16"] - adv_short["float32"]).abs().max())
+            gap = (adv["bfloat16"] - adv["float32"]).abs()
+            print(f"  {mode}: bf16 against fp32 adversaries at 5 steps max_abs_diff "
+                  f"{diff_short:.6f} (tol 0.05); at the served steps max_abs_diff "
+                  f"{float(gap.max()):.6f}, mean {float(gap.mean()):.3e}")
+            if not diff_short < 0.05:
+                raise AssertionError(f"{mode}: bf16 left fp32's adversaries: {diff_short}")
+    return perturb, adamw
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms while a DP run is held against its
+    serial replay: otherwise two runs of one step differ in the last bits of
+    the victim's input gradient, and AdamW's first step turns a near-zero
+    gradient's sign into a full lr step of D."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def _replay(dev, victim, images, cfg, mesh, n_dev: int, epochs: int):
+    """The serial replay, on ``mesh`` (one rank), of a DP run of ``n_dev``
+    ranks from seed 0: its initial state, its plans and its union batches.
+    Returns the replayed state."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.parallel import adil_dp
+
+    n = images.shape[0]
+    n_local = -(-n // n_dev)
+    state = adil_dp.init_dp_state(dev, images.shape[1:], n_local * n_dev, cfg, mesh, seed=0)
+    rows = adil_dp.shard_rows(mesh, images, device=dev)
+    labels = core.predict_labels(victim, rows[:n])
+    labels = torch.cat([labels, labels.new_zeros(rows.shape[0] - n)])
+    plans, replay = adil_dp.plan_generator(0), adil_dp.make_dp_replay_epoch_fn(victim, cfg)
+    for _ in range(epochs):
+        plan = adil_dp.make_local_batches(plans, n, n_dev, cfg.batch_size)
+        replay(state, rows, labels, adil_dp.global_batches_from_local(plan, n_local))
+    return state
+
+
+def dp_world_one(dev, model: str = "resnet50", size: int = 224, n: int = 128, b: int = 64,
+                 k: int = 100) -> int:
+    """``ADIL(mesh=data_mesh())`` at world size 1 over NCCL on ResNet-50: 2
+    epochs of 128 images at b64 with a checkpoint after each, held against
+    its serial replay (1e-5) and with the sharded accuracy equal to the
+    unsharded one. Returns the fused_adamw_project launches. (The keyword
+    arguments shrink the run for a rehearsal on the CPU.)"""
+    import numpy as np
+    import torch.distributed as dist
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.evaluation import model_accuracy, model_accuracy_sharded
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project
+    from dl_attack_on_imagenet_tpu_torch.parallel import auto_initialize, check_mesh, data_mesh
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    auto_initialize(device=dev)
+    backend = dist.get_backend()
+    mesh = data_mesh()
+    health = check_mesh(mesh)
+    print(f"dp world size 1: backend {backend}, mesh {mesh}, check_mesh {health}")
+    if not health["ok"] or (dev.type == "cuda" and backend != "nccl"):
+        raise AssertionError(f"dp world size 1: mesh not healthy or not NCCL: {health}")
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    images = np.random.default_rng(2).random((n, size, size, 3), dtype=np.float32)
+    labels = victim.predict(torch.as_tensor(images, device=dev)).cpu().numpy()
+    labels[::3] = (labels[::3] + 1) % victim.num_classes  # a third wrong
+    t0 = time.perf_counter()
+    sharded = model_accuracy_sharded((images, labels), victim, mesh)
+    plain = model_accuracy((images, labels), victim)
+    print(f"  model_accuracy_sharded {sharded:.6f}, model_accuracy {plain:.6f} "
+          f"({time.perf_counter() - t0:.2f} s both)")
+    if sharded != plain:
+        raise AssertionError("dp world size 1: sharded accuracy differs")
+    with tempfile.TemporaryDirectory() as root, _deterministic_cudnn():
+        cache = ArtifactCache(root)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        attack = ADIL(victim, eps=EPS, n_atoms=k, batch_size=b, loss="logits", steps=2,
+                      data_train=(images, np.zeros((n,), np.int64)), cache=cache, mesh=mesh,
+                      checkpoint_every=1, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_adamw_project.launches
+        saved = cache.load("ImageNet", model=victim.name)
+        left = cache.exists("ImageNet", model=victim.name, kind="dp_train_state_torch")
+    print(f"  ADIL(mesh=data_mesh()) on {model} at {size}x{size}, {n} images, b{b}, 2 epochs: "
+          f"wall {wall:.2f} s, epochs {attack.timing}, fused_adamw_project launches {launches}, "
+          f"loss {attack.history['loss']}")
+    want = 2 * 2 * -(-n // b)
+    if launches != want:
+        raise AssertionError(f"dp world size 1: {launches} launches, the path makes {want}")
+    if saved is None or left:
+        raise AssertionError("dp world size 1: no artifact, or the train state was left")
+    t0 = time.perf_counter()
+    with _deterministic_cudnn():
+        state = _replay(dev, victim, images, attack.cfg, mesh, 1, 2)
+    err = max(float((attack.dictionary.reshape(k, -1) - state.d).abs().max()),
+              float((torch.as_tensor(saved["v"], device=dev) - state.v[:n]).abs().max()))
+    print(f"  against the serial replay of the same plan: D and v max_abs_err {err:.3e} "
+          f"(tol 1e-5; replay {time.perf_counter() - t0:.2f} s; deterministic cuDNN)")
+    spread = float((_replay(dev, victim, images, attack.cfg, mesh, 1, 2).d - state.d).abs().max())
+    print(f"  the replay again without deterministic cuDNN: D max_abs_diff {spread:.3e}")
+    if not err <= 1e-5:
+        raise AssertionError(f"dp world size 1 disagrees with its replay: {err}")
+    _check_trained("dp world size 1", state.d, state.v, EPS)
+    return launches
+
+
+DP_RANKS = dict(model="tiny", size=32, n=32, b=16, k=100, epochs=2)
+
+
+def dp_rank_main(rank: int, root: str, device: str) -> None:
+    """One rank of :func:`dp_two_ranks`: gloo on ``device`` (both ranks on
+    one card), the DP learning of ``DP_RANKS``, its result written to
+    ``root/rank<rank>.npz``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from dl_attack_on_imagenet_tpu_torch.attacks.adil_core import AdilConfig
+    from dl_attack_on_imagenet_tpu_torch.data import ArrayDataset
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project
+    from dl_attack_on_imagenet_tpu_torch.parallel import (
+        auto_initialize, check_mesh, data_mesh, learn_dictionary_distributed)
+
+    _set_precision()
+    torch.backends.cudnn.deterministic = True  # as the replay (_deterministic_cudnn)
+    c = DP_RANKS
+    auto_initialize(device=device, backend="gloo")
+    mesh = data_mesh()
+    health = check_mesh(mesh)
+    victim = create_model(c["model"], input_size=c["size"], device=device, seed=0)
+    images = np.random.default_rng(5).random((c["n"], c["size"], c["size"], 3), dtype=np.float32)
+    cfg = AdilConfig(eps=EPS, n_atoms=c["k"], loss="logits", batch_size=c["b"], steps=c["epochs"])
+    _zero_counts()
+    t0 = time.perf_counter()
+    d, v, history = learn_dictionary_distributed(
+        victim, ArrayDataset(images, np.zeros(c["n"])), cfg, mesh, seed=0)
+    if d.is_cuda:
+        torch.cuda.synchronize()
+    np.savez(f"{root}/rank{rank}.npz", d=d.cpu().numpy(), v=v.cpu().numpy(),
+             loss=np.asarray(history["loss"]), wall=time.perf_counter() - t0,
+             launches=fused_adamw_project.launches, ok=health["ok"],
+             backend=dist.get_backend(), device=str(d.device))
+    dist.destroy_process_group()
+
+
+def dp_two_ranks(dev, timeout: int = 300) -> int:
+    """Two ranks on the one card over gloo, spawned as ``chip_smoke.py
+    --dp-rank R DIR DEVICE``, both on ``dev``: both ranks' D and v
+    identical, and within 1e-5 of the serial replay on ``dev``. Returns both
+    ranks' fused_adamw_project launches."""
+    import numpy as np
+
+    from dl_attack_on_imagenet_tpu_torch.attacks.adil_core import AdilConfig
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.parallel import auto_initialize, data_mesh
+
+    c = DP_RANKS
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as root:
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+               "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                                   str(r), root, str(dev)], env={**env, "RANK": str(r)})
+                 for r in range(2)]
+        try:
+            codes = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        if codes != [0, 0]:
+            raise AssertionError(f"dp 2 ranks: the ranks exited with {codes}")
+        ranks = [dict(np.load(f"{root}/rank{r}.npz")) for r in range(2)]
+    for r, out in enumerate(ranks):
+        print(f"dp 2 ranks, rank {r}: backend {out['backend']}, {out['device']}, check_mesh ok "
+              f"{bool(out['ok'])}, learn {float(out['wall']):.2f} s, fused_adamw_project "
+              f"launches {int(out['launches'])}, loss {out['loss'].tolist()}")
+    print(f"  both ranks, spawn to exit: {wall:.1f} s")
+    same = all(np.array_equal(ranks[0][key], ranks[1][key]) for key in ("d", "v", "loss"))
+    want = 2 * c["epochs"] * -(-(c["n"] // 2) // (c["b"] // 2))
+    if not (same and all(bool(out["ok"]) for out in ranks)):
+        raise AssertionError("dp 2 ranks: the ranks disagree or the mesh is not healthy")
+    victim = create_model(c["model"], input_size=c["size"], device=dev, seed=0)
+    images = np.random.default_rng(5).random((c["n"], c["size"], c["size"], 3), dtype=np.float32)
+    cfg = AdilConfig(eps=EPS, n_atoms=c["k"], loss="logits", batch_size=c["b"], steps=c["epochs"])
+    auto_initialize(device=dev)  # the replay's mesh: this process alone
+    with _deterministic_cudnn():
+        state = _replay(dev, victim, images, cfg, data_mesh(), 2, c["epochs"])
+    err = max(float((torch.as_tensor(ranks[0]["d"], device=dev).reshape(c["k"], -1)
+                     - state.d).abs().max()),
+              float((torch.as_tensor(ranks[0]["v"], device=dev) - state.v[:c["n"]]).abs().max()))
+    print(f"  against the serial replay on the card: D and v max_abs_err {err:.3e} (tol 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"dp 2 ranks disagree with the replay: {err}")
+    if [int(out["launches"]) for out in ranks] != [want, want]:
+        raise AssertionError(f"dp 2 ranks: launches, the path makes {want} a rank")
+    return 2 * want
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -809,11 +1148,12 @@ def main() -> None:
                          text=True).stdout.strip().splitlines()[0]
     print(smi)
     dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _set_precision()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn allow_tf32={torch.backends.cudnn.allow_tf32}")
+          f"cudnn allow_tf32={torch.backends.cudnn.allow_tf32}, matmul "
+          "allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     from dl_attack_on_imagenet_tpu_torch.ops import native
 
@@ -823,9 +1163,9 @@ def main() -> None:
 
     walls = {"builds": time.perf_counter() - t0}
 
-    def timed(name, phase, *args):
+    def timed(name, phase, *args, **kwargs):
         t0 = time.perf_counter()
-        out = phase(*args)
+        out = phase(*args, **kwargs)
         walls[name] = time.perf_counter() - t0
         return out
 
@@ -846,6 +1186,19 @@ def main() -> None:
             perturb, adamw = timed(name, phase, dev, root)
             kernels[0]["launches"] += perturb
             kernels[1]["launches"] += adamw
+    perturb, adamw = timed("mixed precision", mixed_precision, dev)
+    kernels[0]["launches"] += perturb
+    kernels[1]["launches"] += adamw
+    kernels[1]["launches"] += timed("dp world size 1", dp_world_one, dev)
+    kernels[1]["launches"] += timed("dp 2 ranks", dp_two_ranks, dev)
+    with tempfile.TemporaryDirectory() as root:
+        perturb, adamw = timed("demo experiment distributed mixed", demo_experiment, dev, root,
+                               extra=("--distributed", "--mixed-precision"))
+        kernels[0]["launches"] += perturb
+        kernels[1]["launches"] += adamw
+    from dl_attack_on_imagenet_tpu_torch.parallel.dist import shutdown
+
+    shutdown()
     print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
@@ -855,4 +1208,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -4,16 +4,17 @@ Port of ``dl_attack_on_imagenet_tpu/attacks/adil.py``: the constructor, the
 memoized dictionary artifact, dictionary learning (``method="gd"``, the
 joint projected AdamW, with the dataset resident on the device, streamed
 from the host, or decoded from a folder of JPEGs by the native loader, and
-``method="alter"``, alternating v and D phases), the step-level train-state
+``method="alter"``, alternating v and D phases), data-parallel learning
+over a ``parallel.data_mesh`` (``mesh=``), the step-level train-state
 checkpoint, ``forward`` (supervised DDrague or unsupervised best-of-trials
 sampling, learning first where no dictionary exists) and
-``forward_supervised_adamw``.
+``forward_supervised_adamw``, each in fp32 or in the bf16 mixed precision
+of ``perturb_dtype="bfloat16"`` (``adil_core``).
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh`` (data
-parallel training), ``blocked=True``, ``pipeline_epochs=True`` and
-``perturb_dtype="bfloat16"``. ``blocked`` and ``pipeline_epochs`` take
-their defaults and ``False``, and train on the standard serial loop, whose
-trajectory the JAX package's own tests prove equal to theirs.
+Not ported yet, and refused with ``NotImplementedError``: ``blocked=True``
+and ``pipeline_epochs=True``. Both take their defaults and ``False``, and
+train on the standard serial loop, whose trajectory the JAX package's own
+tests prove equal to theirs.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import as_array_dataset, prefetch_to_device
 from ..models import VictimModel
@@ -33,6 +35,33 @@ from .base import Attack
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+
+
+def val_fooled(victim, d: torch.Tensor, data_val, cfg: AdilConfig, device,
+               rank: int = 0, world: int = 1) -> torch.Tensor:
+    """Validation: optimize fresh codes on the val set with D frozen and
+    count how many fool the victim, as a device scalar (divide by the set's
+    size for the rate).
+
+    A ragged last batch is padded by cycling its rows, as the JAX package
+    does to keep one compiled shape, and its count is scaled by its real
+    share of the padded batch. ``rank`` of ``world`` takes every
+    ``world``-th batch from its own; the ranks' counts sum to the whole.
+    """
+    ds = as_array_dataset(data_val)
+    d = core.d_image(d, ds.image_shape)
+    b = cfg.batch_size
+    total = torch.zeros((), device=device)
+    for i, (_, x, _) in enumerate(ds.batches(b)):
+        if i % world != rank:
+            continue
+        k = x.shape[0]
+        if k < b:
+            x = np.concatenate([np.asarray(x)] * -(-b // k))[:b]
+        images = torch.as_tensor(x, dtype=torch.float32, device=device)
+        fooled = core.supervised_adamw_codes(victim, d, images, cfg, return_fooling=True)
+        total += fooled * (k / b if k < b else 1.0)
+    return total
 
 
 class ADIL(Attack):
@@ -84,8 +113,6 @@ class ADIL(Attack):
         pipeline_epochs: Any = "auto",
     ):
         super().__init__(victim, "ADIL", targeted)
-        if mesh is not None:
-            raise _not_ported("data-parallel training (mesh=)", "6")
         if blocked not in ("auto", False):
             raise _not_ported("blocked=True (the space-to-depth layout)", "12")
         if pipeline_epochs not in ("auto", False):
@@ -109,6 +136,7 @@ class ADIL(Attack):
         )
         self.attack_mode = attack
         self.method = method
+        self.mesh = mesh
         self.warm_start = warm_start
         self.model_name = model_name or victim.name
         self.cache = cache or ArtifactCache("trained_dicts")
@@ -148,7 +176,9 @@ class ADIL(Attack):
             data_train, data_val = self._dispatch_folder(data_train, data_val)
             if data_train is None:
                 return  # trained from the JPEG files
-        if self.method == "alter":
+        if self.mesh is not None:
+            self._learn_distributed(data_train, data_val)
+        elif self.method == "alter":
             self._learn_alter(data_train, data_val)
         elif self._should_stream(data_train):
             self._learn_gd_streamed(data_train, data_val)
@@ -168,8 +198,9 @@ class ADIL(Attack):
 
     def _dispatch_folder(self, folder, data_val):
         """Train ``gd`` straight from the files where the native loader
-        builds and ``stream`` is not False; otherwise decode the folder into
-        arrays (with PIL where the loader is missing) and go on with those.
+        builds, ``stream`` is not False and there is no mesh; otherwise
+        decode the folder into arrays (with PIL where the loader is missing)
+        and go on with those.
         Returns the (data_train, data_val) to go on with, or (None, None)
         once training is done."""
         from ..runtime import get_runtime
@@ -177,7 +208,8 @@ class ADIL(Attack):
         runtime = get_runtime()
         if data_val is not None and self._is_path_dataset(data_val):
             data_val = data_val.materialize(runtime=runtime)
-        if runtime is not None and self.method != "alter" and self.stream is not False:
+        if (runtime is not None and self.method != "alter" and self.stream is not False
+                and self.mesh is None):
             self._learn_gd_from_folder(folder, data_val, runtime)
             return None, None
         return folder.materialize(runtime=runtime), data_val
@@ -198,35 +230,23 @@ class ADIL(Attack):
 
     def _prepare(self, data_train, mode: str):
         """Dataset, its images and clean labels on the device, generator and
-        fresh state for a resident training run."""
+        fresh state for a resident training run. In bf16 mode a ``gd`` run
+        holds the images in bf16, after its labels are taken from fp32: the
+        step casts x to bf16 anyway, and the epoch's gather moves half the
+        bytes."""
         ds = as_array_dataset(data_train)
         images = torch.as_tensor(ds.images, dtype=torch.float32, device=self.device).contiguous()
         generator = self._generator()
         state = self._init(ds.image_shape, len(ds), generator, mode)
         labels = core.predict_labels(self.victim, images)
+        if mode == "gd" and self.cfg.compute_dtype is not None:
+            images = images.to(self.cfg.compute_dtype)
         return ds, images, labels, generator, state
 
     def _val_fooling(self, d: torch.Tensor, data_val) -> float:
-        """Validation: optimize fresh codes on the val set with D frozen and
-        count how many fool the victim, as a share of the set.
-
-        A ragged last batch is padded by cycling its rows, as the JAX
-        package does to keep one compiled shape, and its count is scaled by
-        its real share of the padded batch.
-        """
-        ds = as_array_dataset(data_val)
-        d = core.d_image(d, ds.image_shape)
-        b = self.cfg.batch_size
-        total = 0.0
-        for _, x, _ in ds.batches(b):
-            k = x.shape[0]
-            if k < b:
-                x = np.concatenate([np.asarray(x)] * -(-b // k))[:b]
-            images = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-            fooled = core.supervised_adamw_codes(self.victim, d, images, self.cfg,
-                                                 return_fooling=True)
-            total += float(fooled) * (k / b if k < b else 1.0)
-        return total / len(ds)
+        """The share of the val set that fresh codes on D fool (:func:`val_fooled`)."""
+        return float(val_fooled(self.victim, d, data_val, self.cfg, self.device)) / len(
+            as_array_dataset(data_val))
 
     def _end_epoch(self, t: int, tag: str, state, generator, sums, n: int,
                    history: dict, data_val) -> bool:
@@ -395,6 +415,22 @@ class ADIL(Attack):
                 break
         self._finish(state, ds.image_shape, history, timer)
 
+    def _learn_distributed(self, data_train, data_val) -> None:
+        """Data-parallel joint projected AdamW over ``self.mesh``
+        (``parallel.learn_dictionary_distributed``): every rank learns the
+        same D, and only rank 0 writes the artifact."""
+        from ..parallel import learn_dictionary_distributed
+
+        d, v, history = learn_dictionary_distributed(
+            self.victim, as_array_dataset(data_train), self.cfg, self.mesh,
+            seed=self.seed, verbose=self.verbose,
+            data_val=as_array_dataset(data_val) if data_val is not None else None,
+            val_every=self.val_every or 0, d_init=self._load_warm_start(),
+            checkpoint_every=self.checkpoint_every or 0, cache=self.cache,
+            ckpt_key=self._train_ckpt_key(distributed=True), resume=self.resume)
+        self.timing = history.pop("timing")
+        self._save(d, v, history)
+
     def _finish(self, state, image_shape, history: dict, timer: StepTimer) -> None:
         self.timing = timer.summary()
         self._save(core.d_image(state.d, image_shape), state.v, history)
@@ -404,8 +440,9 @@ class ADIL(Attack):
     # -- mid-training checkpoint: the port's own kind, so that a JAX
     # -- train-state checkpoint in a shared cache is never resumed here.
 
-    def _train_ckpt_key(self) -> dict:
-        return dict(model=self.model_name, kind="train_state_torch")
+    def _train_ckpt_key(self, distributed: bool = False) -> dict:
+        kind = "dp_train_state_torch" if distributed else "train_state_torch"
+        return dict(model=self.model_name, kind=kind)
 
     def _save_train_state(self, state: core.TrainState, generator: torch.Generator,
                           history: dict) -> None:
@@ -440,10 +477,13 @@ class ADIL(Attack):
 
     def _save(self, d: torch.Tensor, v: torch.Tensor, history: dict) -> None:
         """Save the artifact (D in its (K, H, W, C) presentation shape, v and
-        the history; None entries are left out) and keep D."""
-        payload = {"d": d, "v": v}
-        payload.update({k: np.asarray(val) for k, val in history.items() if val is not None})
-        self.cache.save(payload, "ImageNet", model=self.model_name)
+        the history; None entries are left out) and keep D. With a mesh only
+        rank 0 writes."""
+        if self.mesh is None or dist.get_rank() == 0:
+            payload = {"d": d, "v": v}
+            payload.update({k: np.asarray(val) for k, val in history.items()
+                            if val is not None})
+            self.cache.save(payload, "ImageNet", model=self.model_name)
         self.dictionary = d.contiguous()
         self.history = history
 

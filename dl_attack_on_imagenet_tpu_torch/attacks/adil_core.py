@@ -19,6 +19,16 @@ supervised solver's final read-off with ``eps = inf`` (``clip(x + D v, 0,
 1)``). The in-loop forwards need gradients and stay plain torch, as the
 kernel has no backward; the early stop on ``max|Δ| < tol`` reads one scalar
 back to the host per step.
+
+Mixed precision (``perturb_dtype="bfloat16"``), the JAX package's contract:
+the contractions inside the inner forwards run in bf16 (``batch_loss``'s
+``v·D`` added to a bf16 image, DDrague's ``codes_from_pinv`` and
+``dict_apply``, the AdamW codes' ``dict_apply``), and the victim normalizes
+the bf16 sum in bf16 before its fp32 layers. The master z, v and D, the
+AdamW moments, every projection and clamp, and the final read-off stay
+fp32: ``fused_adamw_project`` still updates both fp32 halves of a step, and
+``fused_perturb`` still reads the adversary off with eps = inf.
+Unsupervised sampling has no bf16 branch.
 """
 
 from __future__ import annotations
@@ -64,18 +74,22 @@ class AdilConfig:
     steps_code: int = 100  # inner v-solver iterations
     code_lr: float = 1e-2  # inference-time AdamW lr
     tol: float = 1e-6
-    perturb_dtype: str = "float32"
+    perturb_dtype: str = "float32"  # 'float32' | 'bfloat16' (see the module)
 
     def __post_init__(self):
-        if self.perturb_dtype != "float32":
-            raise NotImplementedError(
-                f"perturb_dtype={self.perturb_dtype!r} is not ported yet "
-                "(ROADMAP.md queue 1 item 2); the port computes the "
-                "perturbation in float32")
+        # A typo must not fall back to fp32 unnoticed.
+        if self.perturb_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"perturb_dtype must be 'float32' or 'bfloat16', "
+                             f"got {self.perturb_dtype!r}")
 
     @property
     def coeff(self) -> float:
         return 1.0 if self.targeted else -1.0
+
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """The inner forwards' contraction dtype: None (true fp32) or bf16."""
+        return torch.bfloat16 if self.perturb_dtype == "bfloat16" else None
 
 
 def init_dictionary(generator: torch.Generator, image_shape, cfg: AdilConfig,
@@ -166,10 +180,12 @@ def batch_loss(model: Model, d: torch.Tensor, v_rows: torch.Tensor,
 
     Training applies no pixel clamp on x + Dv (the reference's
     ``Attack_dict_model`` forward). CE carries ``cfg.coeff`` (-1 when
-    untargeted); the CW margin handles its sign itself.
+    untargeted); the CW margin handles its sign itself. In bf16 mode dv and
+    the sum are bf16, x cast to bf16 where it is not already.
     """
-    dv = dict_apply(v_rows, d).reshape(x.shape)
-    logits = model(x + dv).float()
+    dt = cfg.compute_dtype
+    dv = dict_apply(v_rows, d, dt).reshape(x.shape)
+    logits = model((x if dt is None else x.to(dt)) + dv).float()
     if cfg.loss == "ce":
         per = cfg.coeff * F.cross_entropy(logits, labels, reduction="none")
     else:
@@ -179,7 +195,8 @@ def batch_loss(model: Model, d: torch.Tensor, v_rows: torch.Tensor,
     return loss, fooling
 
 
-def make_train_step(model: Model, cfg: AdilConfig, update: str = "both"):
+def make_train_step(model: Model, cfg: AdilConfig, update: str = "both",
+                    reduce_d_grad: Optional[Callable[[torch.Tensor], None]] = None):
     """One projected-AdamW training step over a batch, in place.
 
     The step takes ``(state, x, labels, idx, mask)``: images, their clean
@@ -193,6 +210,9 @@ def make_train_step(model: Model, cfg: AdilConfig, update: str = "both"):
     All of v moves at every step that updates it, as in JAX's optimizer:
     rows outside the batch get a zero gradient, but their moments decay
     and weight decay moves them.
+
+    ``reduce_d_grad``, where given, reduces D's gradient in place before
+    D's update: the data-parallel all-reduce (``parallel.adil_dp``).
     """
     if update not in ("both", "v", "d"):
         raise ValueError(f"update must be 'both', 'v' or 'd', got {update!r}")
@@ -209,8 +229,11 @@ def make_train_step(model: Model, cfg: AdilConfig, update: str = "both"):
             loss, [t for t, on in ((d, train_d), (v, train_v)) if on]))
         with torch.no_grad():
             if train_d:
+                g_d = next(grads)
+                if reduce_d_grad is not None:
+                    reduce_d_grad(g_d)
                 state.d_count += 1
-                fused_adamw_project(state.d, next(grads), state.d_mu, state.d_nu,
+                fused_adamw_project(state.d, g_d, state.d_mu, state.d_nu,
                                     state.d_count, lr_d, clip_d)
                 if cfg.norm == "l2":
                     state.d.copy_(project_dictionary(state.d, "l2"))
@@ -315,18 +338,22 @@ def supervised_ddrague(
     clamped to [-eps, eps] after each step, early stop when max|Δz| < tol.
     Only z is eps-clamped: the returned perturbation D D† z is z's
     projection onto span(D), which can exceed eps in l∞. That is the
-    reference's behaviour and is kept.
+    reference's behaviour and is kept. In bf16 mode both in-loop
+    contractions and the forward's input are bf16; the final read-off is
+    fp32.
     """
     eps = cfg.eps if eps is None else eps
     kappa = cfg.kappa if kappa is None else kappa
+    dt = cfg.compute_dtype
     with torch.no_grad():
         labels = torch.argmax(model(images).float(), dim=-1)
         d_pinv = dict_pinv(d)
+    images_c = images if dt is None else images.to(dt)
     red = "mean" if cfg.loss == "ce" else "sum"
 
     def loss_fn(z):
-        dv = dict_apply(codes_from_pinv(z, d_pinv), d).reshape(images.shape)
-        logits = model(images + dv).float()
+        dv = dict_apply(codes_from_pinv(z, d_pinv, dt), d, dt).reshape(images.shape)
+        logits = model(images_c + dv).float()
         return attack_loss(logits, labels, loss=cfg.loss, targeted=cfg.targeted,
                            kappa=kappa, reduction=red)
 
@@ -352,17 +379,21 @@ def supervised_adamw_codes(
     AdamW(lr=code_lr) with the l1/l2-ball projection after each step, at
     most ``steps_code`` iterations, early stop on max|Δv| < tol.
     ``return_fooling=True`` returns the fooling count of the unclipped
-    adversaries instead (the training-time validation path).
+    adversaries instead (the training-time validation path). In bf16 mode
+    the in-loop contraction and the forward's input are bf16; the returned
+    adversaries and the fooling count are computed in fp32.
     """
     eps = cfg.eps if eps is None else eps
     kappa = cfg.kappa if kappa is None else kappa
+    dt = cfg.compute_dtype
     with torch.no_grad():
         labels = torch.argmax(model(images).float(), dim=-1)
+    images_c = images if dt is None else images.to(dt)
     red = "mean" if cfg.loss == "ce" else "sum"
 
     def loss_fn(v):
-        dv = dict_apply(v, d).reshape(images.shape)
-        logits = model(images + dv).float()
+        dv = dict_apply(v, d, dt).reshape(images.shape)
+        logits = model(images_c + dv).float()
         return attack_loss(logits, labels, loss=cfg.loss, targeted=cfg.targeted,
                            kappa=kappa, reduction=red)
 

@@ -7,6 +7,12 @@ loaded into it, and then, with ``--fast-victim``, its BatchNorms are folded
 ``stem_s2d`` is a TPU layout of the same stem that the port does not build
 (ROADMAP.md queue 1 item 12): it is dropped with a printed line.
 ``--device`` picks the card or the CPU; it defaults to ``cuda``.
+
+Precision: both CLIs run the victim's convolutions in true fp32, as every
+check of the port against the JAX package and every wall in ``PERF.md``
+did, and the bf16 dictionary contractions of ``--mixed-precision`` with an
+fp32 accumulator: :func:`set_precision` turns off torch's defaults of cuDNN
+TF32 and of bf16 split-K reductions.
 """
 
 from __future__ import annotations
@@ -24,11 +30,24 @@ def add_victim_args(p) -> None:
                    help="device to run on: cuda (default; raises without one) or cpu")
 
 
+def set_precision() -> None:
+    """Turn off cuDNN TF32 (torch's default is on) and cuBLAS's bf16 split-K
+    reductions (``ops.dictionary`` refuses them), and say so."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print("precision: cuDNN convolutions in fp32 (torch.backends.cudnn.allow_tf32 = False), "
+          "bf16 products with an fp32 accumulator "
+          "(torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False)")
+
+
 def build_victim(args):
     """The victim of ``args`` (model, seed, input size, weights, fast-victim,
-    device), loaded and folded in that order."""
+    device), loaded and folded in that order, after :func:`set_precision`."""
     from ..models import blanket_input_size, create_model, fast_victim_kwargs
 
+    set_precision()
     knobs = fast_victim_kwargs(args.model) if args.fast_victim else {}
     if args.fast_victim and not knobs:
         print(f"warning: --fast-victim has no knobs for '{args.model}'; ignored")

@@ -6,9 +6,14 @@ builds the victim and the dataset from the arguments (``--synthetic N``: the
 tiny victim on N seeded random images; otherwise the ImageNet folder under
 ``--data-root``, decoded by the native loader where it builds, else by PIL),
 and :func:`run_experiment` runs the experiment on any victim and dataset.
+``--distributed`` learns the dictionary data-parallel over every rank of
+the launch (one process per card, NCCL; gloo with ``--device cpu``), and
+``--mixed-precision`` runs the attack's inner forwards in bf16.
 
 Usage: python -m dl_attack_on_imagenet_tpu_torch.cli.demo [--model densenet] \
-           --num-train-per-class 10 [--synthetic 0] [--device cpu]
+           --num-train-per-class 10 [--synthetic 0] [--device cpu] \
+           [--distributed] [--mixed-precision]
+       torchrun --nproc-per-node N -m dl_attack_on_imagenet_tpu_torch.cli.demo --distributed ...
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--num-train-per-class", type=int, default=10)
     p.add_argument("--trained-classes", type=int, default=1000)
     p.add_argument("--distributed", action="store_true",
-                   help="train the dictionary data-parallel (not ported yet)")
+                   help="learn the dictionary data-parallel over every rank of the launch "
+                        "(torchrun or srun, one process a card; alone, a world of one); "
+                        "rank 0 writes the files")
     p.add_argument("--steps-inference", type=int, default=100)
     p.add_argument("--steps", type=int, default=500)
     p.add_argument("--n-atoms", type=int, default=100)
@@ -45,7 +52,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "Inception included (the reference's one Resize(256)+CenterCrop(224) "
                         "transform); 299 is Inception's native size")
     p.add_argument("--mixed-precision", action="store_true",
-                   help="bfloat16 perturbation forwards (not ported yet)")
+                   help="perturb_dtype=bfloat16: bf16 dictionary contractions and victim "
+                        "input in the inner forwards; fp32 master state, clamps and adversaries")
     from ._victim import add_victim_args
 
     add_victim_args(p)
@@ -55,14 +63,16 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(args) -> dict:
     from ..data import ArrayDataset, load_imagenet
     from ..models import create_model
+    from ._victim import build_victim, set_precision
 
     if args.distributed:
-        raise NotImplementedError("--distributed (data-parallel training) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 6)")
-    if args.mixed_precision:
-        raise NotImplementedError("--mixed-precision (perturb_dtype='bfloat16') is not ported "
-                                  "yet (ROADMAP.md queue 1 item 2)")
+        from ..parallel import auto_initialize
+        from ..parallel.dist import current_device
+
+        auto_initialize(device=args.device)
+        args.device = str(current_device())  # cuda:LOCAL_RANK on the card
     if args.synthetic:
+        set_precision()
         victim = create_model("tiny", seed=args.seed, device=args.device)
         n = args.synthetic
         images = np.random.default_rng(args.seed).random((n, 32, 32, 3), dtype=np.float32)
@@ -71,7 +81,6 @@ def main(args) -> dict:
         return run_experiment(victim, dataset, 4, [2, 1, 1], "tiny", args)
 
     from ..runtime import get_runtime
-    from ._victim import build_victim
 
     victim = build_victim(args)
     dataset = load_imagenet(args.data_root).materialize(runtime=get_runtime())
@@ -83,7 +92,11 @@ def run_experiment(victim, dataset, num_classes: int, per_class, model_name: str
     """Accuracy, split, ADiL over the hyper-grid (learning its dictionary
     unless ``--dict-dir`` holds one for ``model_name``), val and test
     performance, and the results file under ``--results-dir``. Prints the
-    wall of each stage; every stage ends in a host read of its results."""
+    wall of each stage; every stage ends in a host read of its results.
+    With ``--distributed`` the dictionary is learned over a
+    ``parallel.data_mesh`` of every rank, and only rank 0 writes."""
+    import torch.distributed as dist
+
     from .. import evaluation as perf
     from ..attacks import ADIL
     from ..data import split_by_class
@@ -97,6 +110,12 @@ def run_experiment(victim, dataset, num_classes: int, per_class, model_name: str
     train_ds, val_ds, test_ds = split_by_class(dataset, per_class,
                                                number_of_classes=num_classes, seed=args.seed)
     cache = ArtifactCache(args.dict_dir)
+    mesh = None
+    if args.distributed:
+        from ..parallel import auto_initialize, data_mesh
+
+        auto_initialize(device=args.device)
+        mesh = data_mesh()
     t0 = time.perf_counter()
     attacks_hyper = {
         "adil": perf.get_atks(
@@ -106,9 +125,10 @@ def run_experiment(victim, dataset, num_classes: int, per_class, model_name: str
             attack="supervised", eps=args.eps, steps=args.steps,
             targeted=False, step_size=0.01,
             batch_size=min(args.batch_size, len(train_ds)),
-            model_name=model_name, steps_in=1, loss="logits",
+            model_name=model_name, mesh=mesh, steps_in=1, loss="logits",
             method="gd", warm_start=False,
             steps_inference=args.steps_inference, cache=cache,
+            perturb_dtype="bfloat16" if args.mixed_precision else "float32",
         ),
     }
     walls["dictionary learning"] = time.perf_counter() - t0
@@ -124,8 +144,9 @@ def run_experiment(victim, dataset, num_classes: int, per_class, model_name: str
 
     results = {"val": val_perf, "test": test_perf, "accuracy": float(acc)}
     out_path = f"{args.results_dir}/results_{model_name}_seed{args.seed}.msgpack"
-    save_artifact(out_path, _flatten(results))
-    print(f"saved results to {out_path}")
+    if mesh is None or dist.get_rank() == 0:
+        save_artifact(out_path, _flatten(results))
+        print(f"saved results to {out_path}")
     print("val:", val_perf)
     print("test:", test_perf)
     print("stage walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))

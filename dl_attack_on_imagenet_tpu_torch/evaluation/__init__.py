@@ -9,7 +9,13 @@ from .harness import (
     performance,
     select_hyperparameter,
 )
-from .metrics import compute_fooling_rate, compute_mse, compute_rmse, model_accuracy
+from .metrics import (
+    compute_fooling_rate,
+    compute_mse,
+    compute_rmse,
+    model_accuracy,
+    model_accuracy_sharded,
+)
 
 __all__ = [
     "compute_fooling_rate",
@@ -20,6 +26,7 @@ __all__ = [
     "get_performance",
     "get_transfer_performance",
     "model_accuracy",
+    "model_accuracy_sharded",
     "performance",
     "select_hyperparameter",
 ]

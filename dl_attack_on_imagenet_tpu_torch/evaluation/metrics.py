@@ -1,14 +1,15 @@
 """Attack-quality metrics and top-1 accuracy.
 
-Port of ``compute_fooling_rate``, ``compute_rmse``, ``compute_mse`` and
-``model_accuracy`` from ``dl_attack_on_imagenet_tpu/evaluation/metrics.py``.
-``model_accuracy_sharded`` waits for the data-parallel port (ROADMAP.md
-queue 1 item 6).
+Port of ``compute_fooling_rate``, ``compute_rmse``, ``compute_mse``,
+``model_accuracy`` and ``model_accuracy_sharded`` from
+``dl_attack_on_imagenet_tpu/evaluation/metrics.py``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import as_array_dataset
 from ..models import VictimModel
@@ -58,4 +59,35 @@ def model_accuracy(dataset, victim: VictimModel, batch_size: int = 128) -> float
     for _, x, y in ds.batches(batch_size):
         pred = victim.predict(torch.as_tensor(x, dtype=torch.float32, device=dev))
         correct += torch.sum(pred == torch.as_tensor(y, device=dev))
+    return int(correct) / len(ds)
+
+
+@torch.no_grad()
+def model_accuracy_sharded(dataset, victim: VictimModel, mesh, batch_size: int = 128,
+                           axis: str = "data") -> float:
+    """Top-1 accuracy with each global batch of ``batch_size`` rows a rank
+    sharded over ``mesh``: each rank takes its slice of the batch,
+    zero-padded to the slice's size, counts the correct real rows, and
+    the counts are all-reduced once at the end (the reference's
+    DistributedSampler and ``dist.reduce(SUM)``). Every rank gets the same
+    number."""
+    ds = as_array_dataset(dataset)
+    group = mesh.get_group(axis)
+    n_dev, rank = mesh.size(), dist.get_rank(group)
+    dev = victim.device
+    images, labels = ds.as_arrays()
+    correct = torch.zeros((), dtype=torch.int64, device=dev)
+    step = batch_size * n_dev
+    for start in range(0, len(ds), step):
+        x = np.asarray(images[start:start + step], np.float32)
+        local = -(-x.shape[0] // n_dev)
+        rows = slice(rank * local, (rank + 1) * local)
+        x, y = x[rows], np.asarray(labels[start:start + step])[rows]
+        real = len(y)
+        if real < local:  # this rank's slice runs past the batch: pad it
+            x = np.concatenate([x, np.zeros((local - real,) + x.shape[1:], np.float32)])
+            y = np.concatenate([y, np.zeros((local - real,), y.dtype)])
+        hit = victim.predict(torch.as_tensor(x, device=dev)) == torch.as_tensor(y, device=dev)
+        correct += torch.sum(hit[:real])
+    dist.all_reduce(correct, group=group)
     return int(correct) / len(ds)

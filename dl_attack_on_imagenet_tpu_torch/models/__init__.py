@@ -89,7 +89,10 @@ class VictimModel(nn.Module):
 
     ``forward`` permutes the NHWC batch to an NCHW view; on a contiguous
     NHWC tensor that view is already in ``channels_last`` memory format, so
-    no copy is made before the first convolution.
+    no copy is made before the first convolution. A bf16 input (the
+    mixed-precision forwards) is normalized in bf16 and then cast to fp32
+    for the net, whose layers stay fp32: the JAX wrapper normalizes in the
+    input's dtype and Flax's fp32 layers promote the result.
     """
 
     def __init__(self, name: str, net: nn.Module, input_size: int,
@@ -110,7 +113,7 @@ class VictimModel(nn.Module):
         x = x.permute(0, 3, 1, 2)
         if self.norm is not None:
             x = self.norm(x)
-        return self.net(x)
+        return self.net(x.float())
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Hard labels."""

@@ -33,7 +33,9 @@ def _channel_buffer(values) -> torch.Tensor:
 
 
 class Normalize(nn.Module):
-    """Channel normalization ``(x - mean) / std`` of NCHW images."""
+    """Channel normalization ``(x - mean) / std`` of NCHW images, in the
+    input's dtype (mean and std are cast to it), as the JAX wrapper
+    normalizes a bf16 input in bf16."""
 
     def __init__(self, mean: Sequence[float] = IMAGENET_MEAN,
                  std: Sequence[float] = IMAGENET_STD):
@@ -42,7 +44,7 @@ class Normalize(nn.Module):
         self.register_buffer("std", _channel_buffer(std), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.mean) / self.std
+        return (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
 
 
 class TransformInput(nn.Module):

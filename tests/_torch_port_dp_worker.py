@@ -1,0 +1,122 @@
+"""One rank of the two-rank gloo run of ``tests/test_torch_port_parallel.py``.
+
+    RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=p \\
+        python tests/_torch_port_dp_worker.py DIR
+
+Reads the inputs from ``DIR/inputs.npz`` and the tiny victim's weights from
+``DIR/tiny.pt``, runs every data-parallel piece of the port on the CPU
+over gloo, and writes what it found to ``DIR/rank<r>.npz``: the mesh check,
+one DP epoch in fp32 and in bf16 from the given state over the given plan,
+the sharded accuracy, and ``ADIL(mesh=...)`` run whole and killed after its
+first checkpoint and resumed. It imports neither JAX nor the JAX package.
+"""
+
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+from dl_attack_on_imagenet_tpu_torch.evaluation import model_accuracy_sharded
+from dl_attack_on_imagenet_tpu_torch.models import create_model
+from dl_attack_on_imagenet_tpu_torch.parallel import adil_dp, auto_initialize, check_mesh, data_mesh
+from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+
+class Killed(Exception):
+    pass
+
+
+def dp_epoch(victim, inp, mesh, dtype):
+    """One DP epoch from the state in ``inp`` over its plan; returns D, the
+    whole v (gathered), the global sums and this rank's labels."""
+    rank, n_dev = dist.get_rank(), mesh.size()
+    cfg = core.AdilConfig(n_atoms=int(inp["k"]), batch_size=int(inp["batch"]), loss="ce",
+                          perturb_dtype=dtype)
+    v_all = torch.tensor(inp["v"])
+    n_local = v_all.shape[0] // n_dev
+    v = v_all[rank * n_local:(rank + 1) * n_local].clone()
+    d = torch.tensor(inp["d"])
+    state = core.TrainState(d=d, v=v, d_mu=torch.zeros_like(d), d_nu=torch.zeros_like(d),
+                            v_mu=torch.zeros_like(v), v_nu=torch.zeros_like(v))
+    images = adil_dp.shard_rows(mesh, inp["images"])
+    labels = adil_dp.label_rows_sharded(victim, images, mesh)
+    loss, fooling = adil_dp.make_dp_epoch_fn(victim, cfg, mesh)(state, images, labels, inp["plan"])
+    v_whole = adil_dp._gather_rows(state.v, n_dev, rank, mesh.get_group("data"))
+    return {"d": state.d.numpy(), "v": v_whole.numpy(), "sums": np.array([float(loss), float(fooling)]),
+            "labels": labels.numpy(), "counts": np.array([state.d_count, state.v_count])}
+
+
+def adil_runs(victim, inp, mesh, root):
+    """ADIL(mesh=...) over three epochs with a checkpoint after each: whole,
+    and killed when its second checkpoint is due, then resumed."""
+    data = (inp["images"], np.zeros(len(inp["images"])))
+    kw = dict(n_atoms=int(inp["k"]), steps=3, batch_size=int(inp["batch"]), loss="ce", mesh=mesh,
+              checkpoint_every=1, data_val=(inp["images"][:3], np.zeros(3)), steps_inference=2)
+    whole = ADIL(victim, cache=ArtifactCache(f"{root}/whole"), data_train=data, **kw)
+    real_save, saves = adil_dp._ckpt_save, []
+
+    def save_then_kill(*args):
+        saves.append(1)
+        if len(saves) == 2:
+            raise Killed  # on every rank, so that none waits in a collective
+        real_save(*args)
+
+    cache = ArtifactCache(f"{root}/resumed")
+    adil_dp._ckpt_save = save_then_kill
+    try:
+        ADIL(victim, cache=cache, data_train=data, **kw)
+        raise AssertionError("the run was not killed")
+    except Killed:
+        pass
+    finally:
+        adil_dp._ckpt_save = real_save
+    left = cache.exists("ImageNet", model="tiny", kind="dp_train_state_torch")
+    resumed = ADIL(victim, cache=cache, data_train=data, **kw)
+    out = {}
+    for name, attack in (("whole", whole), ("resumed", resumed)):
+        out[f"{name}_d"] = attack.dictionary.numpy()
+        out[f"{name}_loss"] = np.asarray(attack.history["loss"])
+        out[f"{name}_fooling"] = np.asarray(attack.history["fooling_rate"])
+        out[f"{name}_val"] = np.asarray(attack.history["val_fooling"])
+    saved = ArtifactCache(f"{root}/whole").load("ImageNet", model="tiny")
+    out["saved_v"] = saved["v"]
+    out["ckpt_left_after_kill"] = np.asarray(left)
+    out["ckpt_left_at_end"] = np.asarray(cache.exists("ImageNet", model="tiny",
+                                                      kind="dp_train_state_torch"))
+    return out
+
+
+def main(root: str) -> None:
+    torch.set_num_threads(2)
+    auto_initialize(device="cpu")
+    rank = dist.get_rank()
+    mesh = data_mesh()
+    inp = dict(np.load(f"{root}/inputs.npz"))
+    victim = create_model("tiny", device="cpu", state_dict=torch.load(f"{root}/tiny.pt"))
+    out = {}
+    health = check_mesh(mesh)
+    out["health"] = np.array([health["ok"], health["n_devices"], health["psum"],
+                              health["expected"]], np.float64)
+    try:
+        data_mesh(3)
+        out["wrong_size_error"] = np.asarray("")
+    except ValueError as e:
+        out["wrong_size_error"] = np.asarray(str(e))
+    for dtype in ("float32", "bfloat16"):
+        out.update({f"{dtype}_{k}": v for k, v in dp_epoch(victim, inp, mesh, dtype).items()})
+    out["accuracy"] = np.asarray(model_accuracy_sharded(
+        (inp["images"], inp["acc_labels"]), victim, mesh, batch_size=3))
+    if rank == 0:
+        os.makedirs(f"{root}/adil", exist_ok=True)
+    dist.barrier()
+    out.update(adil_runs(victim, inp, mesh, f"{root}/adil"))
+    np.savez(f"{root}/rank{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

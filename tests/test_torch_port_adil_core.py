@@ -105,8 +105,10 @@ def test_init_dictionary_ranges():
 
 
 def test_perturb_dtype_other_than_float32_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        core.AdilConfig(perturb_dtype="bfloat16")
+    # bfloat16 is ported; any other dtype raises, as in the JAX package.
+    assert core.AdilConfig(perturb_dtype="bfloat16").perturb_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):
+        core.AdilConfig(perturb_dtype="float16")
 
 
 def test_every_adversary_goes_through_fused_perturb(setup, monkeypatch):

@@ -141,11 +141,47 @@ def test_adil_raises_where_the_jax_class_would_train(tmp_path):
     _, _, pv = victim_pair("tiny")
     cache = ArtifactCache(str(tmp_path))
     x = torch.rand(2, 32, 32, 3)
-    for kwargs in (dict(mesh=object()), dict(blocked=True), dict(pipeline_epochs=True),
-                   dict(perturb_dtype="bfloat16")):
+    for kwargs in (dict(blocked=True), dict(pipeline_epochs=True)):
         with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP.md"):
             ADIL(pv, n_atoms=8, cache=cache, data_train=(x.numpy(), np.zeros(2)), **kwargs)
     assert not cache.exists("ImageNet", model="tiny")
+
+
+def test_adil_trains_in_bf16_where_the_jax_class_would_train(tmp_path):
+    # perturb_dtype="bfloat16" is ported (ADIL(mesh=...) is tested in
+    # test_torch_port_parallel.py): it trains, checkpoints and resumes, keeps
+    # an fp32 artifact, and serves fp32 adversaries.
+    _, _, pv = victim_pair("tiny")
+    x = torch.rand(6, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    kw = dict(n_atoms=8, steps=3, batch_size=4, perturb_dtype="bfloat16", steps_inference=2,
+              data_train=(x.numpy(), np.zeros(6)))
+    whole = ADIL(pv, cache=ArtifactCache(str(tmp_path / "whole")), **kw)
+    cache = ArtifactCache(str(tmp_path / "resumed"))
+
+    class Killed(Exception):
+        pass
+
+    saves = []
+
+    def save_then_kill(state, generator, history):
+        saves.append(state.epoch)
+        if len(saves) == 2:
+            raise Killed  # after the second epoch's checkpoint is due, before it is written
+        ADIL._save_train_state(resumed_probe, state, generator, history)
+
+    resumed_probe = ADIL(pv, cache=cache, **{**kw, "data_train": None})
+    resumed_probe._save_train_state = save_then_kill
+    resumed_probe.checkpoint_every = 1
+    with pytest.raises(Killed):
+        resumed_probe.learn_dictionary(kw["data_train"])
+    assert cache.exists("ImageNet", model="tiny", kind="train_state_torch")
+    resumed = ADIL(pv, cache=cache, checkpoint_every=1, **kw)
+    assert resumed.history["loss"] == whole.history["loss"]
+    np.testing.assert_array_equal(resumed.dictionary.numpy(), whole.dictionary.numpy())
+    assert whole.dictionary.dtype == torch.float32
+    assert not cache.exists("ImageNet", model="tiny", kind="train_state_torch")
+    adv = whole(x[:2])
+    assert adv.dtype == torch.float32 and adv.shape == (2, 32, 32, 3)
 
 
 def test_adil_raises_on_a_folder_dataset(tmp_path):

@@ -174,14 +174,61 @@ def test_demo_main_runs_end_to_end_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--synthetic", "8", "--distributed"], "queue 1 item 6"),
-    (["--synthetic", "8", "--mixed-precision"], "queue 1 item 2"),
     (["--model", "alexnet"], "unknown model 'alexnet'"),
 ])
 def test_demo_names_what_is_not_ported(extra, error):
     args = demo.build_argparser().parse_args(extra + ["--device", "cpu"])
     with pytest.raises((NotImplementedError, ValueError), match=error):
         demo.main(args)
+
+
+@pytest.mark.parametrize("flag", ["--distributed", "--mixed-precision"])
+def test_demo_takes_distributed_and_mixed_precision(flag, tmp_path, monkeypatch):
+    # Each flag that the port refused until it was ported: --distributed
+    # learns over a world of one process (gloo on the CPU),
+    # --mixed-precision runs the inner contractions in bf16.
+    from dl_attack_on_imagenet_tpu_torch import parallel
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core
+    from dl_attack_on_imagenet_tpu_torch.parallel import dist as port_dist
+
+    dtypes, dp_calls = set(), []
+    real_apply, real_dp = adil_core.dict_apply, parallel.learn_dictionary_distributed
+
+    def recording_apply(v, d, compute_dtype=None):
+        dtypes.add(compute_dtype)
+        return real_apply(v, d, compute_dtype)
+
+    def recording_dp(*args, **kwargs):
+        dp_calls.append(args[3])
+        return real_dp(*args, **kwargs)
+
+    monkeypatch.setattr(adil_core, "dict_apply", recording_apply)
+    monkeypatch.setattr(parallel, "learn_dictionary_distributed", recording_dp)
+    args = demo.build_argparser().parse_args(
+        ["--synthetic", "16", "--steps", "1", "--n-atoms", "4", "--steps-inference", "2",
+         "--device", "cpu", "--dict-dir", str(tmp_path / "d"), "--results-dir",
+         str(tmp_path / "r"), flag])
+    try:
+        results = demo.main(args)
+    finally:
+        port_dist.shutdown()
+    assert 0.0 <= results["accuracy"] <= 1.0
+    assert os.listdir(tmp_path / "r") == ["results_tiny_seed42.msgpack"]
+    if flag == "--distributed":
+        assert len(dp_calls) == 1 and dp_calls[0].size() == 1 and dtypes == {None}
+    else:
+        assert not dp_calls and torch.bfloat16 in dtypes  # (the read-offs stay fp32)
+
+
+def test_build_victim_turns_cudnn_tf32_off(capsys, monkeypatch):
+    # Both CLIs run the fp32 convolutions that every check and wall measured.
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", True)
+    build_victim(_victim_args(model="tiny"))
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+    assert "torch.backends.cudnn.allow_tf32 = False" in capsys.readouterr().out
 
 
 def test_cli_main_draws_a_png(tmp_path, monkeypatch):

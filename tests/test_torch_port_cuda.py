@@ -4,7 +4,10 @@ fused_adamw_project against its twin (p and mu within 1e-6, nu within 1e-6
 relative: elementwise fp32 in the twin's order), their launch counts, the
 wrappers' refusals, three training steps on the card against the CPU, and
 every victim family's logits and CW input gradient on the card against the
-CPU (within 1e-4). Every test here needs a GPU and skips without one.
+CPU (within 1e-4); the bf16 mixed precision on the card against the CPU,
+the bf16 products' fp32 accumulator, and data-parallel learning at world
+size 1 over NCCL against its serial replay. Every test here needs a GPU and
+skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -12,6 +15,9 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_cuda.py
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +26,7 @@ from dl_attack_on_imagenet_tpu_torch.models import create_model
 from dl_attack_on_imagenet_tpu_torch.ops import kernels, native
 from dl_attack_on_imagenet_tpu_torch.ops import (
     attack_loss,
+    codes_from_pinv,
     dict_apply,
     fused_adamw_project,
     fused_adamw_project_reference,
@@ -34,11 +41,16 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no GPU present: the CUDA kernel runs only on the card")
-    # True fp32 in matmuls and in cuDNN convolutions, as chip_smoke.py runs.
-    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    # True fp32 in matmuls and in cuDNN convolutions, and bf16 products with
+    # an fp32 accumulator, as chip_smoke.py runs.
+    matmul = torch.backends.cuda.matmul
+    flags = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
+    matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     matmul.allow_bf16_reduced_precision_reduction) = flags
 
 
 def _inputs(dev, n, k, m, v_scale=0.01, x_offset=0):
@@ -298,3 +310,140 @@ def test_inception_average_pool_gradient_on_the_card(cuda, side):
         (grad,) = torch.autograd.grad(_avg_pool(xt), xt, grad_out.to(dev))
         grads.append(grad.cpu())
     assert float((grads[0] - grads[1]).abs().max()) <= 1e-6
+
+
+ULP = 2.0 ** -8  # one bf16 rounding, relative (tests/test_torch_port_mixed.py)
+
+
+def test_bf16_products_accumulate_in_fp32(cuda):
+    # The port's choice: a bf16 product on the card sums in fp32 and rounds
+    # once, as XLA does; it refuses to run while cuBLAS may reduce split-K
+    # partial sums in bf16. At DDrague's read-off (150528 terms a code) the
+    # product is one rounding from the fp32 product of the bf16 operands
+    # (2^-7 of it covers a rounding to either neighbour), plus the fp32
+    # summation order (1e-5 of the sum of |terms|).
+    g = torch.Generator(device=cuda).manual_seed(0)
+    m = 224 * 224 * 3
+    z = torch.rand((64, m), generator=g, device=cuda) * 0.06 - 0.03
+    p = torch.randn((100, m), generator=g, device=cuda) * 1e-3
+    v = torch.randn((64, 100), generator=g, device=cuda) * 0.01
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    with pytest.raises(RuntimeError, match="accumulate in fp32"):
+        codes_from_pinv(z, p, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="accumulate in fp32"):
+        dict_apply(v, p, torch.bfloat16)
+    reduced = (z.bfloat16() @ p.bfloat16().T).float()  # what the refusal avoids
+    matmul.allow_bf16_reduced_precision_reduction = False
+    for got, a, b in ((codes_from_pinv(z, p, torch.bfloat16), z, p.T),
+                      (dict_apply(v, p, torch.bfloat16), v, p)):
+        assert got.dtype == torch.bfloat16
+        a, b = a.bfloat16().float(), b.bfloat16().float()
+        want = a @ b
+        bound = 2 * ULP * want.abs() + 1e-5 * (a.abs() @ b.abs())
+        assert bool(((got.float() - want).abs() <= bound).all())
+    want = z.bfloat16().float() @ p.bfloat16().float().T
+    print("codes_from_pinv in bf16: max error against the fp32 product with fp32 "
+          f"accumulation {float((codes_from_pinv(z, p, torch.bfloat16).float() - want).abs().max()):.3e}, "
+          f"with bf16 split-K reductions {float((reduced - want).abs().max()):.3e}")
+
+
+def _bf16_pair(cuda):
+    cpu = torch.device("cpu")
+    victim_cpu = create_model("tiny", device=cpu, seed=1)
+    victim_dev = create_model("tiny", device=cuda, state_dict=victim_cpu.net.state_dict())
+    return (victim_cpu, cpu), (victim_dev, cuda)
+
+
+def test_bf16_train_steps_on_the_card_match_the_cpu(cuda):
+    # The fp32 test's 1e-4 (cuDNN's order) plus the bf16 bound of
+    # tests/test_torch_port_mixed.py: cuBLAS and the CPU sum the bf16
+    # products in other orders, and a sum on the other side of a rounding
+    # boundary moves a value by 2^-8 of it: 2^-8 * lr * steps in D and v,
+    # 2^-8 relative in the loss.
+    cfg = core.AdilConfig(n_atoms=8, loss="logits", perturb_dtype="bfloat16")
+    g = torch.Generator().manual_seed(2)
+    images = torch.rand((6, 32, 32, 3), generator=g)
+    state_cpu = core.init_state(g, (32, 32, 3), 6, cfg)
+    state_dev = core.TrainState(**{k: (v.to(cuda) if torch.is_tensor(v) else v)
+                                   for k, v in vars(state_cpu).items()})
+    (victim_cpu, cpu), (victim_dev, _) = _bf16_pair(cuda)
+    labels = core.predict_labels(victim_cpu, images)
+    idx, mask = torch.tensor([3, 0, 5, 0]), torch.tensor([1.0, 1.0, 1.0, 0.0])
+    before = fused_adamw_project.launches
+    losses = []
+    for state, victim, dev in ((state_cpu, victim_cpu, cpu), (state_dev, victim_dev, cuda)):
+        step = core.make_train_step(victim, cfg, "both")
+        losses.append([float(step(state, images[idx].to(dev), labels[idx].to(dev), idx.to(dev),
+                                  mask.to(dev))[0]) for _ in range(3)])
+    torch.cuda.synchronize()
+    assert fused_adamw_project.launches == before + 6  # d and v, three steps, as in fp32
+    tol = 1e-4 + ULP * cfg.step_size * 3
+    assert float((state_dev.d.cpu() - state_cpu.d).abs().max()) <= tol
+    assert float((state_dev.v.cpu() - state_cpu.v).abs().max()) <= tol
+    np.testing.assert_allclose(losses[1], losses[0], rtol=ULP)
+    assert state_dev.d.dtype == state_dev.v.dtype == torch.float32
+
+
+@pytest.mark.parametrize("solver", ["supervised_ddrague", "supervised_adamw_codes"])
+def test_bf16_solvers_on_the_card_match_the_cpu(cuda, solver):
+    # 1e-4 (cuDNN's order, as the fp32 served path) plus the solvers' bf16
+    # bound of tests/test_torch_port_mixed.py, 4 * 2^-8 * code_lr * steps.
+    cfg = core.AdilConfig(n_atoms=8, loss="logits", steps_inference=5, steps_code=5,
+                          perturb_dtype="bfloat16")
+    g = torch.Generator().manual_seed(1)
+    d = torch.rand((8, 32, 32, 3), generator=g) * 2 - 1
+    x = torch.rand((4, 32, 32, 3), generator=g)
+    (victim_cpu, _), (victim_dev, _) = _bf16_pair(cuda)
+    before = fused_perturb.launches
+    want = getattr(core, solver)(victim_cpu, d, x, cfg)
+    got = getattr(core, solver)(victim_dev, d.to(cuda), x.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert fused_perturb.launches == before + 1  # the fp32 read-off
+    assert got.dtype == torch.float32
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 + 4 * ULP * cfg.code_lr * 5
+    fp32 = getattr(core, solver)(victim_dev, d.to(cuda), x.to(cuda),
+                                 dataclasses.replace(cfg, perturb_dtype="float32"))
+    assert float((got - fp32).abs().max()) < 0.05
+
+
+def test_dp_at_world_size_one_over_nccl_matches_the_replay(cuda):
+    # One rank over NCCL: the all-reduces are copies, so the DP run and its
+    # serial replay on the same plan agree within 1e-5 (the loss sums'
+    # order); the sharded accuracy equals the unsharded one.
+    import torch.distributed as dist
+
+    from dl_attack_on_imagenet_tpu_torch.data import ArrayDataset
+    from dl_attack_on_imagenet_tpu_torch.evaluation import model_accuracy, model_accuracy_sharded
+    from dl_attack_on_imagenet_tpu_torch.parallel import (
+        adil_dp, auto_initialize, check_mesh, data_mesh)
+    from dl_attack_on_imagenet_tpu_torch.parallel import dist as port_dist
+
+    auto_initialize(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = data_mesh()
+        assert check_mesh(mesh)["ok"]
+        victim = create_model("tiny", device=cuda, seed=1)
+        images = np.random.default_rng(0).random((10, 32, 32, 3), dtype=np.float32)
+        labels = victim.predict(torch.as_tensor(images, device=cuda)).cpu().numpy()
+        labels[::4] = (labels[::4] + 1) % 10
+        data = ArrayDataset(images, labels)
+        assert model_accuracy_sharded(data, victim, mesh, 4) == model_accuracy(data, victim)
+        cfg = core.AdilConfig(n_atoms=8, batch_size=4, steps=2, loss="logits")
+        before = fused_adamw_project.launches
+        d, v, history = adil_dp.learn_dictionary_distributed(victim, data, cfg, mesh, seed=0)
+        torch.cuda.synchronize()
+        assert fused_adamw_project.launches - before == 2 * 2 * 3  # D and v, 2 epochs of 3
+        state = adil_dp.init_dp_state(cuda, (32, 32, 3), 10, cfg, mesh, seed=0)
+        rows = adil_dp.shard_rows(mesh, images)
+        clean = core.predict_labels(victim, rows)
+        plans, replay = adil_dp.plan_generator(0), adil_dp.make_dp_replay_epoch_fn(victim, cfg)
+        for _ in range(2):
+            plan = adil_dp.make_local_batches(plans, 10, 1, cfg.batch_size)
+            replay(state, rows, clean, adil_dp.global_batches_from_local(plan, 10))
+        assert float((d.reshape(8, -1) - state.d).abs().max()) <= 1e-5
+        assert float((v - state.v).abs().max()) <= 1e-5
+        assert len(history["loss"]) == 2
+    finally:
+        port_dist.shutdown()

@@ -27,7 +27,8 @@ _IMPORT_EVERY_MODULE = textwrap.dedent("""
         importlib.import_module(name)
     for name in ("data.dataset", "data.pipeline", "utils.profiling", "utils.metrics_log",
                  "data.splits", "data.imagenet", "runtime.host_loader", "evaluation.harness",
-                 "models.fold", "cli._victim", "cli.demo", "cli.main"):
+                 "models.fold", "cli._victim", "cli.demo", "cli.main", "parallel",
+                 "parallel.dist", "parallel.mesh", "parallel.health", "parallel.adil_dp"):
         assert port.__name__ + "." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m == "dl_attack_on_imagenet_tpu"
