@@ -64,7 +64,18 @@ phase, and exits non-zero if any phase fails:
    1e-5 of the replay on the card;
 12. runs the experiment of phase 8 once more with ``--distributed
    --mixed-precision``;
-13. prints the whole run's time and one ``{"kernels": [...]}`` line, then the
+13. runs the universal baselines on ResNet-50 at 224x224 at the JAX
+   package's operating points: UAP-PGD learning (256 images, b64, l2 eps
+   0.1, Adam; ms/epoch after a warm-up epoch, one traced epoch), serving a
+   batch of 64, and learning data-parallel at world size 1 over NCCL
+   against its serial replay (1e-5, deterministic cuDNN); DeepFool and
+   DeepFoolCosinus on a batch of 16 (10 classes, 10 iterations; DeepFool
+   traced); Fast-UAP and Moosavi's universal perturbation on 32 images
+   with 16 for val (chunk 1), with their DeepFool solves counted; the
+   harness's lazy ``learn_attack`` and the transfer of the learned UAP onto
+   ResNet-50 and DenseNet-121; DeepFool and a UAP-PGD epoch on the card
+   against the CPU on the tiny victim; and no launch of either kernel;
+14. prints the whole run's time and one ``{"kernels": [...]}`` line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Each path runs with the kernels' launch counts set to 0 just before it, and
@@ -1139,6 +1150,266 @@ def dp_two_ranks(dev, timeout: int = 300) -> int:
     return 2 * want
 
 
+def check_baselines_against_cpu(dev) -> None:
+    """DeepFool and one UAP-PGD epoch on the card against the CPU on the
+    tiny victim at 32x32: DeepFool's iteration counts exact and its
+    perturbations within 1e-4 (each step divides by a gradient norm, and
+    cuDNN sums in another order), UAP-PGD's l2 ``e`` within 1e-5."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import UAPPGD, adil_core, deepfool_batch, uap_pgd
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(3)
+    victim_cpu = create_model("tiny", device=cpu, seed=1)
+    victim_dev = create_model("tiny", device=dev, state_dict=victim_cpu.net.state_dict())
+    images = torch.rand((10, 32, 32, 3), generator=g)
+    r_cpu, it_cpu = deepfool_batch(victim_cpu, images[:8], 10, 0.02, 10)
+    r_dev, it_dev = deepfool_batch(victim_dev, images[:8].to(dev), 10, 0.02, 10)
+    err_df = float((r_dev.cpu() - r_cpu).abs().max())
+    labels = victim_cpu.predict(images)
+    plan = adil_core.make_batches(g, 10, 4)
+    es = []
+    with tempfile.TemporaryDirectory() as root:
+        for victim, where in ((victim_cpu, cpu), (victim_dev, dev)):
+            attack = UAPPGD(victim, steps=0, batch_size=4, norm="l2", eps=0.1,
+                            cache=ArtifactCache(root))
+            e = torch.zeros((1, 32, 32, 3), device=where, requires_grad=True)
+            uap_pgd.make_uap_epoch_fn(victim, attack)(e, attack.make_optimizer([e]),
+                                                      images.to(where), labels.to(where),
+                                                      plan.to(where))
+            es.append(e.detach().cpu())
+    err_uap = float((es[0] - es[1]).abs().max())
+    print(f"small-size deepfool: card vs CPU iters {it_dev.tolist()} / {it_cpu.tolist()}, "
+          f"r_tot max_abs_err {err_df:.3e} (tol 1e-4); uap-pgd l2 epoch: e max_abs_err "
+          f"{err_uap:.3e} (tol 1e-5)")
+    if not (torch.equal(it_dev.cpu(), it_cpu) and err_df <= 1e-4 and err_uap <= 1e-5):
+        raise AssertionError("the baselines on the card disagree with the CPU")
+
+
+def _timed_run(fn):
+    """(result, wall s) of one call of ``fn`` that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _fooled_share(victim, adv, images) -> float:
+    return float((victim.predict(adv) != victim.predict(images)).float().mean())
+
+
+def universal_baselines(dev, model: str = "resnet50", size: int = 224, n_train: int = 256,
+                        b: int = 64, n_df: int = 16, n_uni: int = 32, n_val: int = 16,
+                        transfer: str = "densenet121") -> None:
+    """The universal baselines on ResNet-50 at 224x224 through their entry
+    points, at the JAX package's operating points
+    (``benchmarks/attack_family_bench.py``): UAP-PGD (l2, eps 0.1, Adam,
+    b64) learning 3 epochs on 256 images after a 1-epoch warm-up, one
+    traced epoch, served on a batch of 64, and learned data-parallel at
+    world size 1 over NCCL against its serial replay; DeepFool and
+    DeepFoolCosinus on a batch of 16 (10 classes, 10 iterations), timed
+    after a warm-up and traced; Fast-UAP and the universal perturbation
+    on 32 images with 16 for val (chunk 1, DeepFool at most 10
+    iterations); the harness's lazy ``learn_attack`` on a batch the victim
+    partly misclassifies, and the transfer of the learned UAP onto
+    ResNet-50 and DenseNet-121; then the small-size card-against-CPU
+    checks. The path launches neither kernel, which it checks. (The
+    keyword arguments shrink the run for a rehearsal on the CPU.)"""
+    import numpy as np
+
+    import torch.distributed as dist
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import (
+        UAPPGD, FastUAP, deepfool_batch, fast_uap, uap_pgd, universal_perturbation)
+    from dl_attack_on_imagenet_tpu_torch.attacks.adil_core import make_batches
+    from dl_attack_on_imagenet_tpu_torch.evaluation import get_performance, get_transfer_performance
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.parallel import adil_dp, auto_initialize, data_mesh
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    _zero_counts()
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    images = torch.rand((n_train, size, size, 3), generator=g, device=dev)
+    # The seed-0 softmax is 1 in fp32, where CE has no gradient and UAP-PGD's
+    # loss is exactly 0: divide the classifier by the median top-2 logit gap
+    # (a temperature; every label stays, and DeepFool and the gates, which
+    # compare logits, do not change).
+    with torch.no_grad():
+        top2 = victim(images).topk(2).values
+        gap = max(float((top2[:, 0] - top2[:, 1]).median()), 1.0)
+        head = [mod for mod in victim.net.modules() if isinstance(mod, torch.nn.Linear)][-1]
+        head.weight.div_(gap)
+        head.bias.div_(gap)
+        probs = torch.softmax(victim(images), -1).max(-1).values
+    labels = victim.predict(images)
+    print(f"universal baselines on {model}: classifier divided by the median top-2 logit gap "
+          f"{gap:.4f}; clean top-1 probability median {float(probs.median()):.6f}, "
+          f"{labels.unique().numel()} distinct labels in {n_train} images")
+    data = (images.cpu().numpy(), labels.cpu().numpy())
+    uap_kw = dict(batch_size=b, eps=0.1, norm="l2", optimizer="adam")
+    tag = f"{model} {size}x{size}"
+    with tempfile.TemporaryDirectory() as root:
+        # UAP-PGD learning and serving.
+        UAPPGD(victim, data_train=data, steps=1, cache=ArtifactCache(f"{root}/warm"), **uap_kw)
+        attack, wall = _timed_run(lambda: UAPPGD(victim, data_train=data, steps=3,
+                                                 cache=ArtifactCache(f"{root}/uap"), **uap_kw))
+        e = attack.attack_vec
+        norm = float(e.norm())
+        print(f"uap-pgd learn on {tag}, {n_train} images, b{b}, l2 eps 0.1, adam: UAPPGD(steps=3) "
+              f"wall {wall:.3f} s (after a 1-epoch warm-up; the upload of the images, 3 epochs "
+              f"and the artifact's write), loss {attack.history['loss']}, |e|_2 {norm:.6f}")
+        if e.shape != (1, size, size, 3) or not bool(torch.isfinite(e).all()) or not (
+                norm <= 0.1 + 1e-5):
+            raise AssertionError(f"uap-pgd: bad perturbation, |e|_2 {norm}")
+        # The bare epoch on the resident tensors: a warm-up, then the mean of 3.
+        epoch_fn = uap_pgd.make_uap_epoch_fn(victim, attack)
+        e_run = e.clone().requires_grad_(True)
+        opt = attack.make_optimizer([e_run])
+        plan = make_batches(torch.Generator().manual_seed(1), n_train, b).to(dev)
+        epoch_fn(e_run, opt, images, labels, plan)
+        walls = [_timed_run(lambda: epoch_fn(e_run, opt, images, labels, plan))[1]
+                 for _ in range(3)]
+        wall = sum(walls) / 3
+        print(f"uap-pgd epoch on {tag}, {n_train} resident images, b{b}: {wall * 1e3:.3f} ms/epoch "
+              f"(mean of 3 after a warm-up; {', '.join(f'{w * 1e3:.3f}' for w in walls)} ms)")
+        print_device_breakdown("uap-pgd epoch", lambda: epoch_fn(e_run, opt, images, labels, plan),
+                               wall)
+        served, served_labels = images[:b], labels[:b]
+        attack(served, served_labels)  # warm-up
+        adv, wall = _timed_run(lambda: attack(served, served_labels))
+        print(f"uap-pgd serve b{b}: wall {wall * 1e3:.2f} ms, fooled share "
+              f"{_fooled_share(victim, adv, served):.4f}, |adv - x|_2 max "
+              f"{float((adv - served).flatten(1).norm(dim=1).max()):.6f}")
+        if adv.shape != served.shape or not (float(adv.min()) >= 0 and float(adv.max()) <= 1):
+            raise AssertionError("uap-pgd serving: adversaries leave [0, 1]")
+
+        # Data parallel at world size 1 (NCCL on the card) against its replay.
+        auto_initialize(device=dev)
+        mesh = data_mesh()
+        with _deterministic_cudnn():
+            dp, wall = _timed_run(lambda: UAPPGD(victim, data_train=data, steps=2, mesh=mesh,
+                                                 cache=ArtifactCache(f"{root}/dp"), **uap_kw))
+
+            def replay():
+                e_rep = torch.zeros_like(e).requires_grad_(True)
+                opt_rep, plans = attack.make_optimizer([e_rep]), adil_dp.plan_generator(0)
+                for _ in range(2):
+                    local = adil_dp.make_local_batches(plans, n_train, 1, b)
+                    epoch_fn(e_rep, opt_rep, images, labels, torch.as_tensor(
+                        adil_dp.global_batches_from_local(local, n_train), device=dev))
+                return e_rep.detach()
+
+            replayed, replay_wall = _timed_run(replay)
+            err = float((dp.attack_vec - replayed).abs().max())
+        spread = float((replay() - replay()).abs().max())
+        _, free_wall = _timed_run(replay)
+        print(f"uap-pgd dp world size 1 ({dist.get_backend()}): 2 epochs {wall:.3f} "
+              f"s, e against the serial replay max_abs_err {err:.3e} (tol 1e-5, deterministic "
+              f"cuDNN; the replay {replay_wall:.3f} s there, {free_wall:.3f} s without it); "
+              f"two replays without it differ by {spread:.3e}")
+        if not err <= 1e-5:
+            raise AssertionError(f"uap-pgd dp disagrees with its replay: {err}")
+
+        # DeepFool and DeepFoolCosinus on a batch.
+        x = images[:n_df]
+        deepfool_batch(victim, x, 10, 0.02, 10)  # warm-up
+        (r, iters), wall = _timed_run(lambda: deepfool_batch(victim, x, 10, 0.02, 10))
+        adv = torch.clamp(x + r, 0.0, 1.0)
+        print(f"deepfool b{n_df} on {tag}, 10 classes, max_iter 10: wall {wall:.3f} s, iters "
+              f"{iters.tolist()}, fooled share {_fooled_share(victim, adv, x):.4f} (clipped "
+              f"adversaries), |r|_2 median {float(r.flatten(1).norm(dim=1).median()):.4e}")
+        if not (bool(torch.isfinite(r).all()) and int(iters.max()) <= 10):
+            raise AssertionError("deepfool: non-finite perturbation or too many iterations")
+        print_device_breakdown(f"deepfool b{n_df}", lambda: deepfool_batch(victim, x, 10, 0.02, 10),
+                               wall)
+        fast_uap.deepfool_cosinus_batch(victim, x, e, max_iter=10)  # warm-up
+        adv, wall = _timed_run(lambda: fast_uap.deepfool_cosinus_batch(victim, x, e, max_iter=10))
+        print(f"deepfool-cosinus b{n_df}, attack_init the uap-pgd e: wall {wall:.3f} s, fooled "
+              f"share {_fooled_share(victim, adv, x):.4f}")
+        if not (bool(torch.isfinite(adv).all()) and float(adv.min()) >= 0
+                and float(adv.max()) <= 1):
+            raise AssertionError("deepfool-cosinus: adversaries leave [0, 1]")
+
+        # Fast-UAP and the universal perturbation, counting the DeepFool
+        # solves (chunks through the gate) and the increments folded in.
+        counts = {"solves": 0, "accepted": 0}
+        real_deepfool, real_fold = fast_uap.deepfool_batch, fast_uap.fold_increments
+
+        def counted_deepfool(*args, **kwargs):
+            counts["solves"] += 1
+            return real_deepfool(*args, **kwargs)
+
+        def counted_fold(v, deltas, accept, *args):
+            counts["accepted"] += int(accept.sum())
+            return real_fold(v, deltas, accept, *args)
+
+        train = (data[0][:n_uni], data[1][:n_uni])
+        val = (data[0][n_uni:n_uni + n_val], data[1][n_uni:n_uni + n_val])
+        fast_kw = dict(steps=1, steps_deepfool=10, chunk=1)
+        FastUAP(victim, data_train=(train[0][:2], train[1][:2]),
+                cache=ArtifactCache(f"{root}/fast_warm"), **fast_kw)  # warm-up at b1
+        fast_uap.deepfool_batch, fast_uap.fold_increments = counted_deepfool, counted_fold
+        try:
+            fast, wall = _timed_run(lambda: FastUAP(victim, data_train=train, data_val=val,
+                                                    cache=ArtifactCache(f"{root}/fast"),
+                                                    **fast_kw))
+            print(f"fast-uap on {tag}, {n_uni} images + {n_val} val, 1 epoch, chunk 1, "
+                  f"deepfool <= 10: wall {wall:.3f} s, deepfool solves {counts['solves']}, "
+                  f"increments accepted {counts['accepted']}, val fooling "
+                  f"{fast.history['fooling_rate']}, |e|_inf {float(fast.attack_vec.abs().max()):.4e}")
+            if not bool(torch.isfinite(fast.attack_vec).all()) or fast.attack_vec.shape != e.shape:
+                raise AssertionError("fast-uap: bad perturbation")
+            # The first image passes the gate against the zero perturbation,
+            # so a run that counted no solve was not counted at all.
+            if counts["solves"] == 0:
+                raise AssertionError("fast-uap: no deepfool solve counted")
+            counts.update(solves=0, accepted=0)
+            xi = 10 / 255
+            (v, history), wall = _timed_run(lambda: universal_perturbation(
+                train, val, victim, max_iter_uni=1, max_iter_df=10, xi=xi, p="linf", chunk=1))
+            print(f"universal perturbation on {tag}, {n_uni} images + {n_val} val, 1 pass, "
+                  f"chunk 1, xi 10/255 linf: wall {wall:.3f} s, deepfool solves "
+                  f"{counts['solves']}, increments accepted {counts['accepted']}, val fooling "
+                  f"{history}, |v|_inf {float(v.abs().max()):.6f}")
+            if v.shape != (size, size, 3) or not float(v.abs().max()) <= xi + 1e-6:
+                raise AssertionError("universal perturbation: bad perturbation")
+            if counts["solves"] == 0:
+                raise AssertionError("universal perturbation: no deepfool solve counted")
+        finally:
+            fast_uap.deepfool_batch, fast_uap.fold_increments = real_deepfool, real_fold
+
+        # The harness: lazy learn_attack on the kept rows, then the transfer.
+        y = labels[:n_df].clone()
+        y[::5] = (y[::5] + 1) % victim.num_classes  # the victim misclassifies these
+        lazy = {"uappgd": [UAPPGD(victim, steps=3, cache=ArtifactCache(f"{root}/lazy"), **uap_kw)],
+                "fastuap": [FastUAP(victim, cache=ArtifactCache(f"{root}/lazy"), **fast_kw)]}
+        perf, wall = _timed_run(lambda: get_performance(lazy, victim, [(x, y)]))
+        print(f"harness get_performance (lazy learn_attack on {int((y == labels[:n_df]).sum())} "
+              f"kept rows of {n_df}): {wall:.3f} s; fooling {perf['fooling_rate']}, rmse "
+              f"{perf['rmse']}, time {perf['time']}")
+        if not all(group[0].is_trained for group in lazy.values()) or not all(
+                np.isfinite(vals).all() for vals in perf["rmse"].values()):
+            raise AssertionError("harness: an attack did not learn, or a metric is not finite")
+        victims = {model: victim,
+                   transfer: create_model(transfer, input_size=size, device=dev, seed=0)}
+        moved, wall = _timed_run(lambda: get_transfer_performance(
+            {"uappgd": [attack]}, victims, [(x, labels[:n_df])]))
+        print(f"harness get_transfer_performance of the uap-pgd e onto {list(victims)}: "
+              f"{wall:.3f} s; {moved['uappgd']}")
+        if not all(np.isfinite(list(m.values())).all() for m in moved["uappgd"].values()):
+            raise AssertionError("transfer: a metric is not finite")
+    check_baselines_against_cpu(dev)
+    launches = (fused_perturb.launches, fused_adamw_project.launches)
+    print(f"universal baselines: fused_perturb / fused_adamw_project launches {launches[0]} / "
+          f"{launches[1]} (the path runs neither kernel)")
+    if launches != (0, 0):
+        raise AssertionError(f"universal baselines launched a kernel: {launches}")
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1196,6 +1467,7 @@ def main() -> None:
                                extra=("--distributed", "--mixed-precision"))
         kernels[0]["launches"] += perturb
         kernels[1]["launches"] += adamw
+    timed("universal baselines", universal_baselines, dev)
     from dl_attack_on_imagenet_tpu_torch.parallel.dist import shutdown
 
     shutdown()

@@ -1,7 +1,13 @@
-"""Attacks on a frozen victim: ADIL serving."""
+"""Attacks on a frozen victim: ADIL, and the universal baselines (UAP-PGD,
+Fast-UAP, DeepFool, DeepFoolCosinus and Moosavi's universal perturbation)."""
 
 from .adil import ADIL
 from .adil_core import AdilConfig
 from .base import Attack
+from .deepfool import DeepFool, deepfool_batch
+from .fast_uap import DeepFoolCosinus, FastUAP
+from .uap_pgd import UAPPGD
+from .universal_pert import universal_perturbation
 
-__all__ = ["ADIL", "AdilConfig", "Attack"]
+__all__ = ["ADIL", "AdilConfig", "Attack", "DeepFool", "DeepFoolCosinus", "FastUAP", "UAPPGD",
+           "deepfool_batch", "universal_perturbation"]

@@ -55,9 +55,10 @@ def performance(attack, victim: VictimModel, data: Iterable, verbose: bool = Fal
     the attack is called, as the JAX package does (there to keep one
     compiled shape); the padding also decides the unsupervised draws, which
     depend on the batch shape, so it is kept for equal numbers. Metrics use
-    only the real rows. An attack whose dictionary would be learned lazily
-    on its first call learns it here first, on the real kept rows, so that
-    the cycled duplicates never enter training.
+    only the real rows. An attack that would learn lazily on its first call
+    learns here first, on the real kept rows, so that the cycled duplicates
+    never enter training: ADIL through ``learn_dictionary``, UAP-PGD and
+    Fast-UAP through ``learn_attack``.
     """
     num_samples = 0
     fooling = rmse = mse = 0.0
@@ -73,7 +74,11 @@ def performance(attack, victim: VictimModel, data: Iterable, verbose: bool = Fal
         xk, yk = x[keep], y[keep]
         if k < b:
             if getattr(attack, "is_trained", True) is False:
-                attack.learn_dictionary((xk.cpu().numpy(), yk.cpu().numpy()), None)
+                kept = (xk.cpu().numpy(), yk.cpu().numpy())
+                if hasattr(attack, "learn_dictionary"):  # ADIL
+                    attack.learn_dictionary(kept, None)
+                elif hasattr(attack, "learn_attack"):  # the UAP family
+                    attack.learn_attack(kept, None)
             reps = -(-b // k)
             x_in, y_in = torch.cat([xk] * reps)[:b], torch.cat([yk] * reps)[:b]
         else:

@@ -7,8 +7,9 @@ Reads the inputs from ``DIR/inputs.npz`` and the tiny victim's weights from
 ``DIR/tiny.pt``, runs every data-parallel piece of the port on the CPU
 over gloo, and writes what it found to ``DIR/rank<r>.npz``: the mesh check,
 one DP epoch in fp32 and in bf16 from the given state over the given plan,
-the sharded accuracy, and ``ADIL(mesh=...)`` run whole and killed after its
-first checkpoint and resumed. It imports neither JAX nor the JAX package.
+the sharded accuracy, ``ADIL(mesh=...)`` run whole and killed after its
+first checkpoint and resumed, and two epochs of ``UAPPGD(mesh=...)``. It
+imports neither JAX nor the JAX package.
 """
 
 import os
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+from dl_attack_on_imagenet_tpu_torch.attacks import ADIL, UAPPGD
 from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
 from dl_attack_on_imagenet_tpu_torch.evaluation import model_accuracy_sharded
 from dl_attack_on_imagenet_tpu_torch.models import create_model
@@ -90,6 +91,23 @@ def adil_runs(victim, inp, mesh, root):
     return out
 
 
+# The UAP-PGD run's settings; the test replays them.
+UAP_KW = dict(steps=2, norm="l2", eps=0.5, seed=0)
+
+
+def uap_run(victim, inp, mesh, root):
+    """Two data-parallel UAP-PGD epochs on the images and ``acc_labels``,
+    each rank with a cache of its own; then which ranks wrote an artifact."""
+    rank, n_dev = dist.get_rank(), mesh.size()
+    attack = UAPPGD(victim, data_train=(inp["images"], inp["acc_labels"]), mesh=mesh,
+                    batch_size=int(inp["batch"]), cache=ArtifactCache(f"{root}/uap{rank}"),
+                    **UAP_KW)
+    dist.barrier()
+    saved = [ArtifactCache(f"{root}/uap{r}").exists("UAPPGD", model="tiny") for r in range(n_dev)]
+    return {"uap_e": attack.attack_vec.numpy(), "uap_loss": np.asarray(attack.history["loss"]),
+            "uap_saved": np.asarray(saved)}
+
+
 def main(root: str) -> None:
     torch.set_num_threads(2)
     auto_initialize(device="cpu")
@@ -114,6 +132,7 @@ def main(root: str) -> None:
         os.makedirs(f"{root}/adil", exist_ok=True)
     dist.barrier()
     out.update(adil_runs(victim, inp, mesh, f"{root}/adil"))
+    out.update(uap_run(victim, inp, mesh, root))
     np.savez(f"{root}/rank{rank}.npz", **out)
     dist.destroy_process_group()
 

@@ -6,8 +6,9 @@ wrappers' refusals, three training steps on the card against the CPU, and
 every victim family's logits and CW input gradient on the card against the
 CPU (within 1e-4); the bf16 mixed precision on the card against the CPU,
 the bf16 products' fp32 accumulator, and data-parallel learning at world
-size 1 over NCCL against its serial replay. Every test here needs a GPU and
-skips without one.
+size 1 over NCCL against its serial replay; DeepFool and a UAP-PGD epoch on
+the card against the CPU, and data-parallel UAP-PGD at world size 1 over
+NCCL against its replay. Every test here needs a GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -447,3 +448,81 @@ def test_dp_at_world_size_one_over_nccl_matches_the_replay(cuda):
         assert len(history["loss"]) == 2
     finally:
         port_dist.shutdown()
+
+
+def _tiny_pair(cuda, seed=1):
+    cpu = torch.device("cpu")
+    victim_cpu = create_model("tiny", device=cpu, seed=seed)
+    return victim_cpu, create_model("tiny", device=cuda, state_dict=victim_cpu.net.state_dict())
+
+
+def test_deepfool_on_the_card_matches_the_cpu(cuda):
+    # Iteration counts exact, perturbations within 1e-4 (cuDNN sums in
+    # another order than the CPU, and each step divides by a gradient norm).
+    from dl_attack_on_imagenet_tpu_torch.attacks import deepfool_batch
+
+    victim_cpu, victim_dev = _tiny_pair(cuda)
+    images = torch.rand((8, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    active = torch.tensor([True, True, False, True, True, True, False, True])
+    for mask in (None, active):
+        r_cpu, it_cpu = deepfool_batch(victim_cpu, images, 10, 0.02, 10, active_init=mask)
+        r_dev, it_dev = deepfool_batch(victim_dev, images.to(cuda), 10, 0.02, 10,
+                                       active_init=None if mask is None else mask.to(cuda))
+        assert r_dev.device == images.to(cuda).device and torch.equal(it_dev.cpu(), it_cpu)
+        assert int(it_cpu.max()) > 1
+        assert float((r_dev.cpu() - r_cpu).abs().max()) <= 1e-4
+
+
+def test_uap_pgd_epoch_on_the_card_matches_the_cpu(cuda, tmp_path):
+    # One l2 epoch of 3 Adam steps over one plan: e within 1e-5.
+    from dl_attack_on_imagenet_tpu_torch.attacks import UAPPGD, uap_pgd
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    victim_cpu, victim_dev = _tiny_pair(cuda)
+    g = torch.Generator().manual_seed(4)
+    images = torch.rand((10, 32, 32, 3), generator=g)
+    labels = victim_cpu.predict(images)
+    plan = core.make_batches(g, 10, 4)
+    out = []
+    for victim, dev in ((victim_cpu, torch.device("cpu")), (victim_dev, cuda)):
+        atk = UAPPGD(victim, steps=0, batch_size=4, norm="l2", eps=0.1,
+                     cache=ArtifactCache(str(tmp_path)))
+        e = torch.zeros((1, 32, 32, 3), device=dev, requires_grad=True)
+        loss, _ = uap_pgd.make_uap_epoch_fn(victim, atk)(
+            e, atk.make_optimizer([e]), images.to(dev), labels.to(dev), plan.to(dev))
+        out.append((e.detach().cpu(), float(loss)))
+    assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-5
+    assert out[1][1] == pytest.approx(out[0][1], rel=1e-5)
+
+
+def test_uap_pgd_dp_at_world_size_one_over_nccl_matches_the_replay(cuda, tmp_path):
+    # One rank over NCCL, deterministic cuDNN: the DP epochs and their
+    # serial replay on the same plans agree within 1e-6.
+    from dl_attack_on_imagenet_tpu_torch.attacks import UAPPGD, uap_pgd
+    from dl_attack_on_imagenet_tpu_torch.parallel import adil_dp, auto_initialize, data_mesh
+    from dl_attack_on_imagenet_tpu_torch.parallel import dist as port_dist
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    auto_initialize(device=cuda)
+    try:
+        mesh = data_mesh()
+        victim = create_model("tiny", device=cuda, seed=1)
+        images = np.random.default_rng(0).random((10, 32, 32, 3), dtype=np.float32)
+        labels = victim.predict(torch.as_tensor(images, device=cuda)).cpu().numpy()
+        kw = dict(batch_size=4, norm="l2", eps=0.5, seed=0, cache=ArtifactCache(str(tmp_path)))
+        dp = UAPPGD(victim, data_train=(images, labels), steps=2, mesh=mesh, **kw)
+        atk = UAPPGD(victim, steps=0, **kw)
+        e = torch.zeros((1, 32, 32, 3), device=cuda, requires_grad=True)
+        opt, plans = atk.make_optimizer([e]), adil_dp.plan_generator(0)
+        epoch = uap_pgd.make_uap_dp_replay_epoch_fn(victim, atk, 1)
+        x, y = torch.as_tensor(images, device=cuda), torch.as_tensor(labels, device=cuda)
+        for _ in range(2):
+            plan = adil_dp.global_batches_from_local(adil_dp.make_local_batches(plans, 10, 1, 4), 10)
+            epoch(e, opt, x, y, torch.as_tensor(plan, device=cuda))
+        assert float((dp.attack_vec - e.detach()).abs().max()) <= 1e-6
+        assert len(dp.history["loss"]) == 2
+    finally:
+        port_dist.shutdown()
+        torch.backends.cudnn.deterministic = old

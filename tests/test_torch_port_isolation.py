@@ -28,7 +28,9 @@ _IMPORT_EVERY_MODULE = textwrap.dedent("""
     for name in ("data.dataset", "data.pipeline", "utils.profiling", "utils.metrics_log",
                  "data.splits", "data.imagenet", "runtime.host_loader", "evaluation.harness",
                  "models.fold", "cli._victim", "cli.demo", "cli.main", "parallel",
-                 "parallel.dist", "parallel.mesh", "parallel.health", "parallel.adil_dp"):
+                 "parallel.dist", "parallel.mesh", "parallel.health", "parallel.adil_dp",
+                 "attacks.uap_pgd", "attacks.deepfool", "attacks.fast_uap",
+                 "attacks.universal_pert"):
         assert port.__name__ + "." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m == "dl_attack_on_imagenet_tpu"

@@ -12,7 +12,9 @@ reason for D's extra room); the epoch sums within 1e-5 relative; in bf16,
 the JAX epoch compiled with ``xla_allow_excess_precision`` off and D and v
 within 2^-8 * lr * steps (``test_torch_port_mixed``). The two ranks agree
 exactly, a killed and resumed run equals the whole one exactly, and the
-sharded accuracy equals the unsharded one exactly.
+sharded accuracy equals the unsharded one exactly. Two data-parallel UAP-PGD
+epochs on the two ranks are within 1e-6 of their serial replay and, in e
+(l2) and in the losses, within 1e-5 of the JAX package's shard_map epoch.
 """
 
 import os
@@ -29,16 +31,22 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from dl_attack_on_imagenet_tpu import parallel as jpar
 from dl_attack_on_imagenet_tpu.attacks import adil_core as jcore
+from dl_attack_on_imagenet_tpu.attacks import uap_pgd as juap
 from dl_attack_on_imagenet_tpu.evaluation import model_accuracy as jax_model_accuracy
 from dl_attack_on_imagenet_tpu.parallel import adil_dp as jdp
 from dl_attack_on_imagenet_tpu.parallel import dist as jdist
+from dl_attack_on_imagenet_tpu.utils import ArtifactCache as JaxArtifactCache
+from dl_attack_on_imagenet_tpu_torch.attacks import UAPPGD
 from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+from dl_attack_on_imagenet_tpu_torch.attacks import uap_pgd
 from dl_attack_on_imagenet_tpu_torch.cli import demo
 from dl_attack_on_imagenet_tpu_torch.evaluation import model_accuracy
 from dl_attack_on_imagenet_tpu_torch.parallel import adil_dp
 from dl_attack_on_imagenet_tpu_torch.parallel import dist as port_dist
+from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
 
 from _torch_port import t, victim_pair
+from _torch_port_dp_worker import UAP_KW
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_IMG, BATCH, K, SIZE, N_DEV = 7, 4, 8, 32, 2  # 7 rows: the second shard is padded
@@ -272,6 +280,55 @@ def test_check_mesh_and_the_mesh_size_at_two_ranks(ranks):
     for out in ranks:
         assert out["health"].tolist() == [1.0, 2.0, 3.0, 3.0]  # ok, 2 ranks, 1 + 2
         assert "requested 3 devices, have 2 ranks" in str(out["wrong_size_error"])
+
+
+def _uap_plans():
+    # The worker's UAPPGD(mesh=...) draws its epochs' plans from seed 0.
+    plans = adil_dp.plan_generator(UAP_KW["seed"])
+    return [adil_dp.make_local_batches(plans, N_IMG, N_DEV, BATCH) for _ in range(UAP_KW["steps"])]
+
+
+def test_uap_pgd_dp_epochs_match_their_serial_replay(setup, ranks, tmp_path):
+    # The replay: the same plans, each step's union batch split into the
+    # ranks' parts, the whole set padded as shard_rows pads it.
+    _, _, pv, inputs = setup
+    atk = UAPPGD(pv, batch_size=BATCH, cache=ArtifactCache(str(tmp_path)), **{**UAP_KW, "steps": 0})
+    pad = N_LOCAL * N_DEV - N_IMG
+    images = t(np.concatenate([inputs["images"], np.zeros((pad, SIZE, SIZE, 3), np.float32)]))
+    labels = torch.tensor(np.concatenate([inputs["acc_labels"], np.zeros(pad, np.int64)]))
+    e = torch.zeros((1, SIZE, SIZE, 3), requires_grad=True)
+    opt = atk.make_optimizer([e])
+    epoch = uap_pgd.make_uap_dp_replay_epoch_fn(pv, atk, N_DEV)
+    losses = [float(epoch(e, opt, images, labels,
+                          torch.as_tensor(adil_dp.global_batches_from_local(plan, N_LOCAL)))[0])
+              for plan in _uap_plans()]
+    for out in ranks:
+        assert float(np.abs(out["uap_e"] - e.detach().numpy()).max()) <= 1e-6
+        np.testing.assert_allclose(out["uap_loss"], losses, rtol=1e-6)
+        assert out["uap_saved"].tolist() == [True, False]  # only rank 0 writes
+    assert float(np.linalg.norm(ranks[0]["uap_e"])) == pytest.approx(UAP_KW["eps"], rel=1e-5)
+
+
+def test_uap_pgd_dp_epochs_on_two_gloo_ranks_match_jax(setup, ranks, tmp_path):
+    # The JAX package's shard_map epoch on a two-device mesh, over the same
+    # rows, true labels and local plans: e (l2) within 1e-5, the epochs'
+    # losses within 1e-5 relative.
+    jv, _, _, inputs = setup
+    mesh = jpar.data_mesh(N_DEV)
+    jatk = juap.UAPPGD(jv, batch_size=BATCH, cache=JaxArtifactCache(str(tmp_path)),
+                       **{**UAP_KW, "steps": 0})
+    epoch = juap.make_uap_epoch_fn(jv.apply_fn, jatk, mesh=mesh)
+    images = jdp.shard_rows(mesh, jnp.asarray(inputs["images"]))
+    labels = jdp.shard_rows(mesh, jnp.asarray(inputs["acc_labels"], jnp.int32))
+    e = jax.device_put(jnp.zeros((1, SIZE, SIZE, 3)), NamedSharding(mesh, P(None, None, None, None)))
+    opt_state, losses = jatk.make_optimizer().init(e), []
+    for plan in _uap_plans():
+        batches = jax.device_put(jnp.asarray(plan, jnp.int32), NamedSharding(mesh, P("data", None, None)))
+        e, opt_state, loss, _ = epoch(e, opt_state, images, labels, batches)
+        losses.append(float(loss))
+    for out in ranks:
+        assert float(np.abs(out["uap_e"] - np.asarray(e)).max()) <= 1e-5
+        np.testing.assert_allclose(out["uap_loss"], losses, rtol=1e-5)
 
 
 def test_demo_runs_distributed_and_mixed_at_world_size_one(tmp_path, monkeypatch, capsys):
