@@ -75,8 +75,21 @@ phase, and exits non-zero if any phase fails:
    harness's lazy ``learn_attack`` and the transfer of the learned UAP onto
    ResNet-50 and DenseNet-121; DeepFool and a UAP-PGD epoch on the card
    against the CPU on the tiny victim; and no launch of either kernel;
-14. prints the whole run's time and one ``{"kernels": [...]}`` line, then the
-   result line ``{"ok": true, "device": {...}}`` last.
+14. runs ADILR on ResNet-50 at 224x224 at its own defaults (K=10, lambda_l1 =
+   lambda_l2 = 0.1, budget 10/255, targeted CE, 100 trials; the classifier
+   tempered where CE saturates): learning through the constructor in each
+   version (``deterministic`` on 64 images with ``steps`` cut to 10,
+   ``adamw`` on 128 at b64 for 2 epochs with 16 val images, ``sadil_updated``
+   on 64 at b16 for 1 epoch), serving a batch of 64 supervised (one
+   ``fused_perturb`` launch at the budget) and in each of the four
+   unsupervised modes (one launch a trial), timed after a warm-up, one of
+   each traced; both kernels at ADILR's shapes against their twins and
+   timed beside their bounds (``fused_adamw_project`` also beside
+   ``torch.optim.AdamW(fused=True)``); and ADILR on the card against the CPU
+   on the tiny victim;
+15. prints the whole run's time and one ``{"kernels": [...]}`` line, each
+   kernel's ADILR shape under ``"adilr"``, then the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 Each path runs with the kernels' launch counts set to 0 just before it, and
 fails if a kernel of that path was not launched as often as the path must.
@@ -126,6 +139,31 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_device_ms(fn, iters: int = 50, warmup: int = 5, sleep_cycles: int = 100_000_000):
+    """Mean device time of ``fn`` over ``iters`` launches with the host
+    ahead: the card first spins for ``sleep_cycles`` (about 50 ms), during
+    which the host enqueues every launch, so no launch waits on the host's
+    wrapper. Returns (ms, the host's enqueue time of the launches in ms),
+    and raises if the host did not finish enqueueing within the spin."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin_start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    spin_start.record()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= spin_start.elapsed_time(start):
+        raise AssertionError(f"the host took {host_ms:.2f} ms to enqueue, longer than the spin")
+    return start.elapsed_time(end) / iters, host_ms / iters
 
 
 def _time_cold_ms(fn, iters: int = 50, warmup: int = 3, flush_bytes: int = 256 << 20) -> float:
@@ -1200,6 +1238,26 @@ def _fooled_share(victim, adv, images) -> float:
     return float((victim.predict(adv) != victim.predict(images)).float().mean())
 
 
+@torch.no_grad()
+def _top1_probability(victim, images, b: int = 64) -> torch.Tensor:
+    return torch.cat([torch.softmax(victim(images[i:i + b]), -1).max(-1).values
+                      for i in range(0, images.shape[0], b)])
+
+
+@torch.no_grad()
+def _temper(victim, images, b: int = 64):
+    """Divide the classifier by the median top-2 logit gap of ``images``: a
+    temperature, under which every label stays. Returns the gap and the
+    clean top-1 probabilities after it."""
+    top2 = torch.cat([victim(images[i:i + b]).topk(2).values
+                      for i in range(0, images.shape[0], b)])
+    gap = max(float((top2[:, 0] - top2[:, 1]).median()), 1.0)
+    head = [mod for mod in victim.net.modules() if isinstance(mod, torch.nn.Linear)][-1]
+    head.weight.div_(gap)
+    head.bias.div_(gap)
+    return gap, _top1_probability(victim, images, b)
+
+
 def universal_baselines(dev, model: str = "resnet50", size: int = 224, n_train: int = 256,
                         b: int = 64, n_df: int = 16, n_uni: int = 32, n_val: int = 16,
                         transfer: str = "densenet121") -> None:
@@ -1235,16 +1293,9 @@ def universal_baselines(dev, model: str = "resnet50", size: int = 224, n_train: 
     g = torch.Generator(device=dev).manual_seed(7)
     images = torch.rand((n_train, size, size, 3), generator=g, device=dev)
     # The seed-0 softmax is 1 in fp32, where CE has no gradient and UAP-PGD's
-    # loss is exactly 0: divide the classifier by the median top-2 logit gap
-    # (a temperature; every label stays, and DeepFool and the gates, which
-    # compare logits, do not change).
-    with torch.no_grad():
-        top2 = victim(images).topk(2).values
-        gap = max(float((top2[:, 0] - top2[:, 1]).median()), 1.0)
-        head = [mod for mod in victim.net.modules() if isinstance(mod, torch.nn.Linear)][-1]
-        head.weight.div_(gap)
-        head.bias.div_(gap)
-        probs = torch.softmax(victim(images), -1).max(-1).values
+    # loss is exactly 0 (DeepFool and the gates compare logits, which the
+    # temperature leaves in order).
+    gap, probs = _temper(victim, images)
     labels = victim.predict(images)
     print(f"universal baselines on {model}: classifier divided by the median top-2 logit gap "
           f"{gap:.4f}; clean top-1 probability median {float(probs.median()):.6f}, "
@@ -1410,6 +1461,319 @@ def universal_baselines(dev, model: str = "resnet50", size: int = 224, n_train: 
         raise AssertionError(f"universal baselines launched a kernel: {launches}")
 
 
+ADILR_K = 10  # ADILR's own default atoms
+ADILR_BUDGET = 10 / 255
+# ADILR's kernels run cold on its path (after a ResNet-50 pass), and their
+# small shapes launch faster than the wrappers enqueue: each cold launch is
+# timed after a 1 GiB write, long enough to hide the host's enqueue.
+COLD_FLUSH = 1 << 30
+
+
+def check_kernels_at_adilr_shapes(dev, n: int = 64, m: int = 224 * 224 * 3):
+    """Both kernels at ADILR's shapes against their twins, each timed by
+    CUDA events beside its bound: ``fused_perturb`` at (64, 10, 150528)
+    with eps = budget and eps = inf (1e-5); ``fused_adamw_project`` without
+    a clamp on D (10 x 150528) and on v (64 x 10) (1e-6), and on D beside
+    ``torch.optim.AdamW(fused=True).step()``, which computes the same
+    function there. Each time is cold (L2 flushed, as on the path), warm
+    with the host ahead of the card, and back to back. Returns the two
+    rows' ADILR entries."""
+    from dl_attack_on_imagenet_tpu_torch.ops import (
+        fused_adamw_project, fused_adamw_project_reference, fused_perturb,
+        fused_perturb_reference)
+
+    k = ADILR_K
+    g = torch.Generator(device=dev).manual_seed(9)
+    v = torch.randn((n, k), generator=g, device=dev) * 0.1
+    d = torch.rand((k, 224, 224, 3), generator=g, device=dev) * 2 - 1
+    x = torch.rand((n, 224, 224, 3), generator=g, device=dev)
+    bound_ms, bound_by = fused_perturb_bound_ms(n, k, m)
+    perturb = {"shape": f"N={n} K={k} M={m}", "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "max_abs_err": 0.0}
+    for name, eps in (("budget", ADILR_BUDGET), ("inf", float("inf"))):
+        got = fused_perturb(v, d, x, eps)
+        want = fused_perturb_reference(v, d.reshape(k, m), x.reshape(n, m), eps).reshape(x.shape)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        launch = lambda: fused_perturb(v, d, x, eps)
+        ms = _time_cold_ms(launch, flush_bytes=COLD_FLUSH)
+        warm_ms, host_ms = _time_device_ms(launch)
+        b2b_ms = _time_ms(launch)
+        plain_ms = _time_cold_ms(lambda: fused_perturb_reference(
+            v, d.reshape(k, m), x.reshape(n, m), eps), flush_bytes=COLD_FLUSH)
+        print(f"fused_perturb at ADILR's N={n} K={k} M={m}, eps={name}: max_abs_err {err:.3e} "
+              f"(tol 1e-5), kernel {ms:.4f} ms cold ({warm_ms:.4f} warm with the host ahead, "
+              f"{b2b_ms:.4f} back to back; the wrapper enqueues one in {host_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms cold, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{bound_ms / ms:.1%} of it cold)")
+        if not err <= 1e-5:
+            raise AssertionError(f"fused_perturb disagrees with its twin at K={k}: {err}")
+        if eps < 1 and not float((got - x).abs().max()) <= eps + 1e-6:
+            raise AssertionError("fused_perturb breaks ADILR's budget")
+        perturb["max_abs_err"] = max(perturb["max_abs_err"], err)
+        perturb.update({f"ms_eps_{name}": ms, f"warm_ms_eps_{name}": warm_ms,
+                        f"back_to_back_ms_eps_{name}": b2b_ms, f"host_ms_eps_{name}": host_ms,
+                        f"plain_ms_eps_{name}": plain_ms})
+    perturb.update(ms=perturb["ms_eps_budget"], plain_ms=perturb["plain_ms_eps_budget"])
+
+    size = k * m
+    adamw = {"shape": f"D {size} and v {n}x{k}, clip inf", "max_abs_err": 0.0}
+    for shape in ((k, 224, 224, 3), (n, k)):
+        for step in (1, 2):
+            p = torch.rand(shape, generator=g, device=dev) * 2 - 1
+            grad, mu = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+            nu = torch.rand(shape, generator=g, device=dev) * 0.01
+            want = fused_adamw_project_reference(p, grad, mu, nu, step, 0.01,
+                                                 clip_val=float("inf"))
+            fused_adamw_project(p, grad, mu, nu, step, 0.01, float("inf"))
+            torch.cuda.synchronize()
+            errs = [float((p - want[0]).abs().max()), float((mu - want[1]).abs().max()),
+                    float(((nu - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max())]
+            print(f"fused_adamw_project at ADILR's {'x'.join(map(str, shape))} step={step} "
+                  f"clip=inf: max_abs_err p {errs[0]:.3e} mu {errs[1]:.3e}, nu max_rel_err "
+                  f"{errs[2]:.3e} (tol 1e-6)")
+            if not max(errs) <= 1e-6:
+                raise AssertionError(f"fused_adamw_project disagrees with its twin: {errs}")
+            adamw["max_abs_err"] = max(adamw["max_abs_err"], errs[0], errs[1])
+    p = torch.rand((size,), generator=g, device=dev) * 2 - 1
+    grad, mu = (torch.randn((size,), generator=g, device=dev) for _ in range(2))
+    nu = torch.rand((size,), generator=g, device=dev) * 0.01
+    step = lambda: fused_adamw_project(p, grad, mu, nu, 2, 0.01, float("inf"))
+    ms = _time_cold_ms(step, flush_bytes=COLD_FLUSH)
+    warm_ms, host_ms = _time_device_ms(step)
+    b2b_ms = _time_ms(step)
+    plain_ms = _time_cold_ms(lambda: fused_adamw_project_reference(
+        p, grad, mu, nu, 2, 0.01, clip_val=float("inf")), flush_bytes=COLD_FLUSH)
+    lib_p = p.clone().requires_grad_(True)
+    lib_p.grad = grad
+    opt = torch.optim.AdamW([lib_p], lr=0.01, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-2, fused=True)
+    library_ms = _time_cold_ms(opt.step, flush_bytes=COLD_FLUSH)
+    library_warm_ms, library_host_ms = _time_device_ms(opt.step)
+    library_b2b_ms = _time_ms(opt.step)
+    codes = [torch.rand((n, k), generator=g, device=dev) for _ in range(4)]
+    v_ms, v_host_ms = _time_device_ms(lambda: fused_adamw_project(*codes, 2, 0.01, float("inf")))
+    bound_ms, bound_by = fused_adamw_project_bound_ms(size)
+    print(f"fused_adamw_project at ADILR's D ({size}), clip=inf: kernel {ms:.4f} ms cold "
+          f"({warm_ms:.4f} warm with the host ahead: the 42 MB fit the 50 MB L2; {b2b_ms:.4f} "
+          f"back to back; the wrapper enqueues one in {host_ms:.4f} ms), plain {plain_ms:.4f} "
+          f"ms cold, bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it cold), "
+          f"library {library_ms:.4f} ms cold ({library_warm_ms:.4f} warm, {library_b2b_ms:.4f} "
+          f"back to back, enqueued in {library_host_ms:.4f}; torch.optim.AdamW(fused=True)"
+          f".step(), the same function without a clamp); on v ({n}x{k}) {v_ms:.4f} ms a "
+          f"launch warm (enqueued in {v_host_ms:.4f})")
+    adamw.update(ms=ms, warm_ms=warm_ms, back_to_back_ms=b2b_ms, host_ms=host_ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                 library_warm_ms=library_warm_ms, library_back_to_back_ms=library_b2b_ms,
+                 v_ms=v_ms, v_host_ms=v_host_ms)
+    return perturb, adamw
+
+
+def check_adilr_against_cpu(dev) -> None:
+    """ADILR on the card against the CPU on the tiny victim at 32x32, K=4:
+    the supervised adversaries (the codes solver, then fused_perturb at the
+    budget) within 1e-4 with equal iteration and halving counts, the
+    unsupervised ones from the same draws within 1e-4, and two batches of
+    the AdamW trainer (D and v) within 1e-4."""
+    import numpy as np
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADILR, RegularizedConfig
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_regularized
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    cpu = torch.device("cpu")
+    victim_cpu = create_model("tiny", device=cpu, seed=3)
+    victim_dev = create_model("tiny", device=dev, state_dict=victim_cpu.net.state_dict())
+    rng = np.random.default_rng(2)
+    train = rng.random((12, 32, 32, 3), dtype=np.float32)
+    labels = victim_cpu.predict(torch.as_tensor(train)).numpy()
+    x = torch.rand((8, 32, 32, 3), generator=torch.Generator().manual_seed(6))
+    y = victim_cpu.predict(x)
+    draws = torch.randn((6, 8, 4), generator=torch.Generator().manual_seed(7)) * 0.5
+    errs = {}
+    with tempfile.TemporaryDirectory() as root:
+        cache = ArtifactCache(root)
+        cache.save({"d": rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32),
+                    "v": rng.laplace(0.3, 0.5, (12, 4)).astype(np.float32),
+                    "loss": np.zeros(2, np.float32), "labels": labels.astype(np.int32)},
+                   "ADILR", model="tiny", lam1=1e-3, lam2=0.1, atoms=4, steps=100,
+                   tag="param_selecting")
+        pair = [ADILR(victim, n_atoms=4, trials=6, lambda_l1=1e-3, cache=cache,
+                      data_train=(train, labels), attack="unsupervised")
+                for victim in (victim_cpu, victim_dev)]
+        advs = [atk.forward_unsupervised_conditioned_atoms(x.to(where), None,
+                                                           draws=draws.to(where)).cpu()
+                for atk, where in zip(pair, (cpu, dev))]
+        errs["unsupervised"] = float((advs[0] - advs[1]).abs().max())
+        advs, stats = [], []
+        for atk, where in zip(pair, (cpu, dev)):
+            atk.attack_mode = "supervised"
+            advs.append(atk(x.to(where), y.to(where)).cpu())
+            stats.append(atk.stats)
+        errs["supervised"] = float((advs[0] - advs[1]).abs().max())
+    d0 = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    v0 = (rng.random((8, 4)) * 0.1).astype(np.float32)
+    cfg = RegularizedConfig(n_atoms=4, batch_size=4, targeted=False, lambda_l2=0.5)
+    runs = [adil_regularized.adilr_adamw(victim, x.to(where), cfg, nepochs=1, shuffle=False,
+                                         d_init=d0, v_init=v0)
+            for victim, where in ((victim_cpu, cpu), (victim_dev, dev))]
+    errs["adamw D"] = float((runs[0][0] - runs[1][0].cpu()).abs().max())
+    errs["adamw v"] = float((runs[0][1] - runs[1][1].cpu()).abs().max())
+    print(f"small-size adilr card vs CPU: max_abs_err {errs} (tol 1e-4); supervised solver "
+          f"stats card {stats[1]} / CPU {stats[0]}")
+    if stats[0] != stats[1] or not max(errs.values()) <= 1e-4:
+        raise AssertionError("ADILR on the card disagrees with the CPU")
+
+
+def adilr(dev, model: str = "resnet50", size: int = 224, n_det: int = 64, det_steps: int = 10,
+          n_adamw: int = 128, b_adamw: int = 64, adamw_epochs: int = 2, n_val: int = 16,
+          n_sadil: int = 64, b_sadil: int = 16, n_serve: int = 64):
+    """ADILR on ResNet-50 at 224x224 at its own defaults (K=10 atoms,
+    lambda_l1 = lambda_l2 = 0.1, budget 10/255, targeted CE, 100 trials,
+    codes step 100), seeded random weights: learning through the class
+    constructor in each version (``deterministic`` on 64 images with
+    ``steps`` cut from 100 to 10; ``adamw`` on 128 images at b64 for 2
+    epochs with 16 val images; ``sadil_updated`` on 64 images at b16 for 1
+    epoch), then serving a batch of 64 with the ``adamw`` dictionary,
+    supervised and in each of the four unsupervised modes, each timed after
+    a warm-up, one of each traced; then
+    both kernels at ADILR's shapes and the card against the CPU. Returns
+    (fused_perturb launches, fused_adamw_project launches, the kernels'
+    ADILR entries). (The keyword arguments shrink the run for a rehearsal
+    on the CPU.)"""
+    import numpy as np
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADILR, AdilConfig
+    from dl_attack_on_imagenet_tpu_torch.attacks.adil import val_fooled
+    from dl_attack_on_imagenet_tpu_torch.attacks.adil_regularized import learn_coding_vectors
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import dict_apply, fused_adamw_project, fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(11)
+    n_train = max(n_det, n_adamw, n_sadil)
+    images = torch.rand((n_train + n_val + n_serve, size, size, 3), generator=g, device=dev)
+    probs = _top1_probability(victim, images)
+    print(f"adilr on {model} {size}x{size}: K={ADILR_K}, lambda_l1 = lambda_l2 = 0.1, budget "
+          f"10/255, targeted CE, 100 trials; clean top-1 probability median "
+          f"{float(probs.median()):.6f}")
+    if float(probs.median()) >= 1.0 - 1e-6:
+        # CE saturates: no gradient, and the prox solvers' Lipschitz
+        # estimate divides by gradient differences.
+        gap, probs = _temper(victim, images)
+        print(f"  CE saturates: classifier divided by the median top-2 logit gap {gap:.4f} (the "
+              f"baselines' tempering); top-1 probability median now {float(probs.median()):.6f}")
+    labels = victim.predict(images)
+    host = (images.cpu().numpy(), labels.cpu().numpy())
+    train = lambda count: (host[0][:count], host[1][:count])
+    val = (host[0][n_train:n_train + n_val], host[1][n_train:n_train + n_val])
+    served = images[n_train + n_val:]
+    served_labels = labels[n_train + n_val:]
+    print(f"  {labels.unique().numel()} distinct labels in {images.shape[0]} images; depth "
+          f"cut: deterministic steps 100 -> {det_steps} on {n_det} images, adamw "
+          f"{adamw_epochs} epochs on {n_adamw} at b{b_adamw}, sadil_updated 1 epoch on "
+          f"{n_sadil} at b{b_sadil}")
+    perturb_total = adamw_total = 0
+    with tempfile.TemporaryDirectory() as root:
+        runs = [  # (version, options, fused_adamw_project launches the path makes)
+            ("deterministic", dict(steps=det_steps, data_train=train(n_det)), 0),
+            ("adamw", dict(steps=adamw_epochs, batch_size=b_adamw, data_train=train(n_adamw),
+                           data_val=val), 2 * adamw_epochs * -(-n_adamw // b_adamw)),
+            ("sadil_updated", dict(steps=1, batch_size=b_sadil, data_train=train(n_sadil)), 0),
+        ]
+        for version, options, want in runs:
+            torch.cuda.synchronize()
+            _zero_counts()
+            attack, wall = _timed_run(lambda: ADILR(
+                victim, version=version, n_atoms=ADILR_K, cache=ArtifactCache(f"{root}/{version}"),
+                model_name=model, **options))
+            launches = (fused_perturb.launches, fused_adamw_project.launches)
+            saved = ArtifactCache(f"{root}/{version}").load(
+                "ADILR", model=model, lam1=0.1, lam2=0.1, atoms=ADILR_K, steps=options["steps"],
+                tag="param_selecting")
+            loss = saved["loss"][np.isfinite(saved["loss"])]
+            extra = (f", fooling {attack.fooling_rates}, val fooling {attack.val_fools}"
+                     if version == "adamw" else "")
+            print(f"adilr learn {version}: wall {wall:.3f} s, {attack.stats}, final loss "
+                  f"{float(loss[-1]):.6f} (losses {np.round(loss, 4).tolist()}), fused_perturb / "
+                  f"fused_adamw_project launches {launches[0]} / {launches[1]}{extra}")
+            if saved["d"].shape != (ADILR_K, size, size, 3) or not (
+                    np.isfinite(saved["d"]).all() and np.isfinite(saved["v"]).all()):
+                raise AssertionError(f"adilr {version}: bad artifact")
+            if launches[1] != want:
+                raise AssertionError(f"adilr {version}: {launches[1]} fused_adamw_project "
+                                     f"launches, the path makes {want}")
+            adamw_total += launches[1]
+
+        # Serving from the AdamW dictionary, whose codes the Laplace fits
+        # read (the prox solvers' stay 0 where every code gradient is under
+        # lambda_l1), supervised and unsupervised.
+        cache = ArtifactCache(f"{root}/adamw")
+        kw = dict(n_atoms=ADILR_K, steps=adamw_epochs, cache=cache, model_name=model)
+        sup = ADILR(victim, **kw)
+        d = sup._load_dictionary()
+        with torch.no_grad():
+            targets = torch.argsort(victim(served), dim=-1, stable=True)[:, -2]
+        _, wall = _timed_run(lambda: val_fooled(victim, d, val, AdilConfig(
+            eps=sup.cfg.eps, n_atoms=ADILR_K, targeted=True, batch_size=n_val), dev))
+        print(f"  adamw's per-epoch validation alone (100 AdamW code steps at b{n_val}): "
+              f"{wall:.3f} s")
+        codes = torch.zeros((n_serve, ADILR_K), device=dev, requires_grad=True)
+        ce = torch.nn.functional.cross_entropy(
+            victim(served + dict_apply(codes, d)), targets, reduction="sum")
+        (grad,) = torch.autograd.grad(ce, codes)
+        print(f"  the codes' gradient at v = 0: max |g| {float(grad.abs().max()):.3e} against "
+              f"lambda_l1 = {sup.cfg.lambda_l1} (a code moves off 0 only where |g| is larger)")
+        learn_coding_vectors(victim, d, served, targets, sup.cfg, niter=2)  # warm-up
+        torch.cuda.synchronize()
+        _zero_counts()
+        adv, wall = _timed_run(lambda: sup(served, served_labels))
+        launches = fused_perturb.launches
+        linf = float((adv - served).abs().max())
+        adv_pred = victim.predict(adv)
+        print(f"adilr serve supervised b{n_serve}: wall {wall:.3f} s, learn_coding_vectors "
+              f"{sup.stats}, fused_perturb launches {launches}, fooled share "
+              f"{float((adv_pred != served_labels).float().mean()):.4f}, on target "
+              f"{float((adv_pred == targets).float().mean()):.4f}, |adv - x|_inf {linf:.6f}")
+        if launches != 1:
+            raise AssertionError(f"adilr supervised: {launches} fused_perturb launches, not 1")
+        if not (bool(torch.isfinite(adv).all()) and float(adv.min()) >= 0
+                and float(adv.max()) <= 1 and linf <= ADILR_BUDGET + 1e-5):
+            raise AssertionError("adilr supervised: adversaries leave [0, 1] or the budget")
+        perturb_total += launches
+        print_device_breakdown(f"adilr supervised b{n_serve}",
+                               lambda: sup(served, served_labels), wall)
+
+        unsup = ADILR(victim, attack="unsupervised", data_train=train(n_adamw), **kw)
+        unsup(served, served_labels)  # warm-up
+        for mode in ADILR.CONDITIONING:
+            unsup.attack_conditioned = mode
+            torch.cuda.synchronize()
+            _zero_counts()
+            adv, wall = _timed_run(lambda: unsup(served, served_labels))
+            launches = fused_perturb.launches
+            print(f"adilr serve unsupervised {mode} b{n_serve}: wall {wall:.3f} s, fused_perturb "
+                  f"launches {launches}, fooled share "
+                  f"{float((victim.predict(adv) != served_labels).float().mean()):.4f}, mse "
+                  f"{float(((adv - served) ** 2).sum((1, 2, 3)).mean()):.6f}")
+            if launches != unsup.cfg.trials:
+                raise AssertionError(f"adilr {mode}: {launches} launches, not one a trial")
+            if not (bool(torch.isfinite(adv).all()) and float(adv.min()) >= 0
+                    and float(adv.max()) <= 1):
+                raise AssertionError(f"adilr {mode}: adversaries leave [0, 1]")
+            perturb_total += launches
+        print_device_breakdown(f"adilr unsupervised {mode} b{n_serve}",
+                               lambda: unsup(served, served_labels), wall)
+    print(f"adilr: fused_perturb / fused_adamw_project launches {perturb_total} / {adamw_total}")
+    if perturb_total == 0 or adamw_total == 0:
+        raise AssertionError("adilr: a kernel of the path was never launched")
+    rows = check_kernels_at_adilr_shapes(dev)
+    check_adilr_against_cpu(dev)
+    return perturb_total, adamw_total, rows
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1468,6 +1832,12 @@ def main() -> None:
         kernels[0]["launches"] += perturb
         kernels[1]["launches"] += adamw
     timed("universal baselines", universal_baselines, dev)
+    perturb, adamw, (perturb_row, adamw_row) = timed("adilr", adilr, dev)
+    kernels[0]["launches"] += perturb
+    kernels[1]["launches"] += adamw
+    kernels[0]["adilr"], kernels[1]["adilr"] = perturb_row, adamw_row
+    for row, extra in zip(kernels, (perturb_row, adamw_row)):
+        row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])
     from dl_attack_on_imagenet_tpu_torch.parallel.dist import shutdown
 
     shutdown()

@@ -8,6 +8,7 @@ the host once a batch, as the JAX package does.
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import time
 from typing import Any, Dict, Iterable, List, Sequence
@@ -57,8 +58,8 @@ def performance(attack, victim: VictimModel, data: Iterable, verbose: bool = Fal
     depend on the batch shape, so it is kept for equal numbers. Metrics use
     only the real rows. An attack that would learn lazily on its first call
     learns here first, on the real kept rows, so that the cycled duplicates
-    never enter training: ADIL through ``learn_dictionary``, UAP-PGD and
-    Fast-UAP through ``learn_attack``.
+    never enter training: ADIL and ADILR through ``learn_dictionary``,
+    UAP-PGD and Fast-UAP through ``learn_attack``.
     """
     num_samples = 0
     fooling = rmse = mse = 0.0
@@ -75,8 +76,15 @@ def performance(attack, victim: VictimModel, data: Iterable, verbose: bool = Fal
         if k < b:
             if getattr(attack, "is_trained", True) is False:
                 kept = (xk.cpu().numpy(), yk.cpu().numpy())
-                if hasattr(attack, "learn_dictionary"):  # ADIL
-                    attack.learn_dictionary(kept, None)
+                if hasattr(attack, "learn_dictionary"):
+                    # ADIL takes (data_train, data_val), ADILR (data_train):
+                    # ask the signature first, since a TypeError caught
+                    # around the call would mask one raised in training.
+                    n_params = len(inspect.signature(attack.learn_dictionary).parameters)
+                    if n_params >= 2:
+                        attack.learn_dictionary(kept, None)
+                    else:
+                        attack.learn_dictionary(kept)
                 elif hasattr(attack, "learn_attack"):  # the UAP family
                     attack.learn_attack(kept, None)
             reps = -(-b // k)

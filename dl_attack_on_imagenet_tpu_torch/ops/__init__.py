@@ -1,5 +1,6 @@
-"""Attack math on torch tensors: projections, dictionary contractions,
-losses, and the hand-written CUDA kernels with their plain twins."""
+"""Attack math on torch tensors: projections and proximal operators,
+dictionary contractions, losses, Laplace fits and draws, and the
+hand-written CUDA kernels with their plain twins."""
 
 from .dictionary import codes_from_pinv, dict_apply, dict_flatten, dict_gram, dict_pinv
 from .kernels import (
@@ -8,14 +9,25 @@ from .kernels import (
     fused_perturb,
     fused_perturb_reference,
 )
+from .laplace import (
+    laplace_fit,
+    laplace_fit_conditioned,
+    laplace_fit_conditioned_direct,
+    laplace_fit_per_atom,
+    laplace_sample,
+)
 from .losses import attack_loss, cross_entropy_mean, cross_entropy_sum, cw_margin_loss
 from .projections import (
     clamp_image,
     l1_ball_project,
+    l1_ball_project_bisect,
     l2_ball_project,
+    l2_sphere_project,
     linf_clamp,
+    project_atoms,
     project_codes,
     project_dictionary,
+    soft_threshold,
 )
 
 __all__ = [
@@ -34,8 +46,17 @@ __all__ = [
     "fused_perturb",
     "fused_perturb_reference",
     "l1_ball_project",
+    "l1_ball_project_bisect",
     "l2_ball_project",
+    "l2_sphere_project",
+    "laplace_fit",
+    "laplace_fit_conditioned",
+    "laplace_fit_conditioned_direct",
+    "laplace_fit_per_atom",
+    "laplace_sample",
     "linf_clamp",
+    "project_atoms",
     "project_codes",
     "project_dictionary",
+    "soft_threshold",
 ]

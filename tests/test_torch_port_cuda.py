@@ -8,7 +8,10 @@ CPU (within 1e-4); the bf16 mixed precision on the card against the CPU,
 the bf16 products' fp32 accumulator, and data-parallel learning at world
 size 1 over NCCL against its serial replay; DeepFool and a UAP-PGD epoch on
 the card against the CPU, and data-parallel UAP-PGD at world size 1 over
-NCCL against its replay. Every test here needs a GPU and skips without one.
+NCCL against its replay; both kernels at ADILR's shapes (fused_perturb at
+K=10, fused_adamw_project without a clamp against torch.optim.AdamW), and
+ADILR's forwards and AdamW trainer on the card against the CPU. Every test
+here needs a GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -526,3 +529,113 @@ def test_uap_pgd_dp_at_world_size_one_over_nccl_matches_the_replay(cuda, tmp_pat
     finally:
         port_dist.shutdown()
         torch.backends.cudnn.deterministic = old
+
+
+@pytest.mark.parametrize("eps", [10 / 255, float("inf")])
+def test_cuda_kernel_matches_plain_twin_at_adilr_shapes(cuda, eps):
+    # ADILR's read-offs: K=10 atoms, a clamp at its budget and none.
+    v, d, x = _inputs(cuda, 64, 10, 224 * 224 * 3, v_scale=0.1)
+    before = fused_perturb.launches
+    got = fused_perturb(v, d.reshape(10, 224, 224, 3), x.reshape(64, 224, 224, 3), eps)
+    torch.cuda.synchronize()
+    assert fused_perturb.launches == before + 1
+    want = fused_perturb_reference(v, d, x, eps).reshape(got.shape)
+    assert float((got - want).abs().max()) <= 1e-5
+    if eps < 1:
+        assert float((got - x.reshape(got.shape)).abs().max()) <= eps + 1e-6
+
+
+def test_adamw_kernel_without_clamp_is_torch_adamw(cuda):
+    # clip_val=inf at ADILR's D size: three steps against torch.optim.AdamW
+    # (weight decay 1e-2, its own order of operations), within 1e-6.
+    n = 10 * 224 * 224 * 3
+    g = torch.Generator(device=cuda).manual_seed(5)
+    p = torch.rand((n,), generator=g, device=cuda) * 2 - 1
+    ref = p.clone().requires_grad_(True)
+    opt = torch.optim.AdamW([ref], lr=0.01, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2)
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    for step in (1, 2, 3):
+        grad = torch.randn((n,), generator=g, device=cuda)
+        fused_adamw_project(p, grad, mu, nu, step, 0.01, float("inf"))
+        ref.grad = grad.clone()
+        opt.step()
+    torch.cuda.synchronize()
+    assert float((p - ref.detach()).abs().max()) <= 1e-6
+
+
+def _adilr_pair(cuda, tmp_path, **kw):
+    """The tiny victim on the CPU and on the card, each with an ADILR over
+    one saved artifact (K=4 atoms on 32x32 images)."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADILR
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    victim_cpu, victim_dev = _tiny_pair(cuda, seed=3)
+    rng = np.random.default_rng(2)
+    train = rng.random((12, 32, 32, 3), dtype=np.float32)
+    labels = victim_cpu.predict(torch.as_tensor(train)).numpy()
+    cache = ArtifactCache(str(tmp_path))
+    cache.save({"d": rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32),
+                "v": rng.laplace(0.3, 0.5, (12, 4)).astype(np.float32),
+                "loss": np.zeros(2, np.float32), "labels": labels.astype(np.int32)},
+               "ADILR", model="tiny", lam1=1e-3, lam2=0.1, atoms=4, steps=100,
+               tag="param_selecting")
+    return [ADILR(victim, n_atoms=4, trials=6, lambda_l1=1e-3, cache=cache,
+                  data_train=(train, labels), **kw) for victim in (victim_cpu, victim_dev)]
+
+
+def test_adilr_forwards_on_the_card_match_the_cpu(cuda, tmp_path):
+    # Supervised: the codes solver and one fused_perturb at the budget,
+    # within 1e-4 of the CPU; unsupervised with the same draws, one launch a
+    # trial, within 1e-5.
+    x = torch.rand((8, 32, 32, 3), generator=torch.Generator().manual_seed(6))
+    on_cpu, on_dev = _adilr_pair(cuda, tmp_path, attack="unsupervised")
+    labels = on_cpu.victim.predict(x)
+    draws = torch.randn((6, 8, 4), generator=torch.Generator().manual_seed(7)) * 0.5
+    for mode in on_cpu.CONDITIONING:
+        outs = []
+        for atk, dev in ((on_cpu, torch.device("cpu")), (on_dev, cuda)):
+            before = fused_perturb.launches
+            if mode in ("labels_atoms", "predictions_atoms"):
+                adv = atk.forward_unsupervised_conditioned_target_atoms(
+                    x.to(dev), labels.to(dev), None, mode.split("_")[0], draws=draws.to(dev))
+            elif mode == "atoms":
+                adv = atk.forward_unsupervised_conditioned_atoms(x.to(dev), None,
+                                                                 draws=draws.to(dev))
+            else:
+                adv = atk.forward_unsupervised(x.to(dev), None, draws=draws.to(dev))
+            outs.append(adv.cpu())
+        assert fused_perturb.launches == before + 6
+        assert float((outs[0] - outs[1]).abs().max()) <= 1e-5
+    for atk in (on_cpu, on_dev):
+        atk.attack_mode = "supervised"
+    before = fused_perturb.launches
+    adv_dev = on_dev(x.to(cuda), labels.to(cuda))
+    assert fused_perturb.launches == before + 1
+    adv_cpu = on_cpu(x, labels)
+    assert on_dev.stats == on_cpu.stats
+    assert float((adv_dev.cpu() - adv_cpu).abs().max()) <= 1e-4
+    assert float((adv_dev.cpu() - x).abs().max()) <= 10 / 255 + 1e-5
+
+
+def test_adilr_adamw_batches_on_the_card_match_the_cpu(cuda):
+    # Two batches of the AdamW trainer: two fused_adamw_project launches a
+    # batch, D and v within 1e-4 of the CPU.
+    from dl_attack_on_imagenet_tpu_torch.attacks import RegularizedConfig, adil_regularized
+
+    victim_cpu, victim_dev = _tiny_pair(cuda, seed=3)
+    rng = np.random.default_rng(4)
+    x = rng.random((8, 32, 32, 3), dtype=np.float32)
+    d0 = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    v0 = (rng.random((8, 4)) * 0.1).astype(np.float32)
+    cfg = RegularizedConfig(n_atoms=4, batch_size=4, targeted=False, lambda_l2=0.5)
+    out = []
+    for victim, dev in ((victim_cpu, torch.device("cpu")), (victim_dev, cuda)):
+        before = fused_adamw_project.launches
+        d, v, losses, _, _ = adil_regularized.adilr_adamw(
+            victim, torch.as_tensor(x, device=dev), cfg, nepochs=1, shuffle=False,
+            d_init=d0, v_init=v0)
+        out.append((d.cpu(), v.cpu(), losses))
+    assert fused_adamw_project.launches == before + 4
+    assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-4
+    assert float((out[0][1] - out[1][1]).abs().max()) <= 1e-4
+    assert out[1][2] == pytest.approx(out[0][2], rel=1e-4)

@@ -30,7 +30,7 @@ _IMPORT_EVERY_MODULE = textwrap.dedent("""
                  "models.fold", "cli._victim", "cli.demo", "cli.main", "parallel",
                  "parallel.dist", "parallel.mesh", "parallel.health", "parallel.adil_dp",
                  "attacks.uap_pgd", "attacks.deepfool", "attacks.fast_uap",
-                 "attacks.universal_pert"):
+                 "attacks.universal_pert", "ops.laplace", "attacks.adil_regularized"):
         assert port.__name__ + "." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m == "dl_attack_on_imagenet_tpu"
