@@ -75,7 +75,16 @@ phase, and exits non-zero if any phase fails:
    harness's lazy ``learn_attack`` and the transfer of the learned UAP onto
    ResNet-50 and DenseNet-121; DeepFool and a UAP-PGD epoch on the card
    against the CPU on the tiny victim; and no launch of either kernel;
-14. runs ADILR on ResNet-50 at 224x224 at its own defaults (K=10, lambda_l1 =
+14. runs the reference's torchattacks grid on ResNet-50 at 224x224, batch
+   64, eps 8/255 and alpha 2/255 (the classifier tempered): VANILA, GN, the
+   FGSM family, PGD and BIM, CW, APGD-CE and APGD-T, FAB and FAB-T, Square,
+   OnePixel and AutoAttack at cut depths (10 steps, 100 Square queries),
+   each timed after a warm-up with its fooled share and largest l∞
+   distance, inside [0, 1] and, where the budget is fixed, inside eps; PGD
+   and Square traced; every family on the card against the CPU on the tiny
+   victim with the same draws (1e-4, equal decisions); and no launch of
+   either kernel;
+15. runs ADILR on ResNet-50 at 224x224 at its own defaults (K=10, lambda_l1 =
    lambda_l2 = 0.1, budget 10/255, targeted CE, 100 trials; the classifier
    tempered where CE saturates): learning through the constructor in each
    version (``deterministic`` on 64 images with ``steps`` cut to 10,
@@ -87,7 +96,7 @@ phase, and exits non-zero if any phase fails:
    timed beside their bounds (``fused_adamw_project`` also beside
    ``torch.optim.AdamW(fused=True)``); and ADILR on the card against the CPU
    on the tiny victim;
-15. prints the whole run's time and one ``{"kernels": [...]}`` line, each
+16. prints the whole run's time and one ``{"kernels": [...]}`` line, each
    kernel's ADILR shape under ``"adilr"``, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -112,6 +121,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -1774,6 +1784,225 @@ def adilr(dev, model: str = "resnet50", size: int = 224, n_det: int = 64, det_st
     return perturb_total, adamw_total, rows
 
 
+GRID_EPS, GRID_ALPHA = 8 / 255, 2 / 255
+# The families held on the card against the CPU on the tiny victim.
+GRID_FAMILIES = ("pgd", "mifgsm", "difgsm", "cw", "apgd", "apgdt", "fab", "square",
+                 "one_pixel", "autoattack")
+
+
+def _float64_copy(victim):
+    """``victim``'s classifier in float64 on a float64 copy of its net and
+    normalization, promoting its input to float64."""
+    import copy
+
+    net = copy.deepcopy(victim.net).double()
+    norm = None if victim.norm is None else copy.deepcopy(victim.norm).double()
+
+    def model(z):
+        z = z.permute(0, 3, 1, 2).double()
+        return net(z if norm is None else norm(z))
+
+    return model
+
+
+def grid_family_run(name: str, victim, images, labels):
+    """One family of the torchattacks grid on ``victim`` with draws from a
+    seeded host generator (so the card and the CPU get the same ones): the adversaries on the host and the decisions it counts (APGD's
+    step sizes after each checkpoint, FAB's found flags and chosen
+    candidates, Square's queries and accepts, OnePixel's generations and
+    accepts, AutoAttack's robust masks). 5 steps, 50 queries, 3
+    generations.
+
+    Square runs on a float64 copy of the victim with the margin objective:
+    its strict-improvement test meets candidates (a 3x3 square late in the
+    schedule, or one that only re-rounds the current best) that move the
+    objective by about one float32 ulp, and the attack takes its
+    objectives in float32 from the logits, as the JAX package does. In
+    float32 the card's logits are about 1e-7 from the CPU's, and the card's
+    float32 log-softmax rounds otherwise than the CPU's, so with either the
+    two accept different such candidates; the margin of float64 logits
+    cast to float32 is the same float on both. (The CE objective is held
+    against the JAX package on the CPU, and runs on the card in the
+    ResNet-50 row.)"""
+    from dl_attack_on_imagenet_tpu_torch.attacks import (
+        APGD, APGDT, AutoAttack, apgd, cw, fab, fgsm_family, one_pixel, pgd, square)
+
+    g = torch.Generator().manual_seed(0)
+    stats = {}
+    eps, alpha, steps = GRID_EPS, GRID_ALPHA, 5
+    if name == "pgd":
+        adv = pgd.pgd(victim, images, labels, eps, alpha, steps,
+                      delta0=pgd.linf_start(g, images.shape, eps))
+    elif name == "mifgsm":
+        adv = fgsm_family.mifgsm(victim, images, labels, eps, alpha, 1.0, steps)
+    elif name == "difgsm":
+        size = images.shape[1]
+        draws = fgsm_family.diversity_draws(g, size, int(size * 0.9), 0.5, steps)
+        adv = fgsm_family.difgsm(victim, images, labels, eps, alpha, 0.0, steps, draws)
+    elif name == "cw":
+        adv = cw.cw_l2(victim, images, labels, 1.0, 0.0, 0.01, steps)
+    elif name == "apgd":
+        adv, _ = apgd.apgd(victim, images, labels, eps, steps, loss="ce",
+                           u=apgd.start_draw(g, images.shape, "linf"), stats=stats)
+    elif name == "apgdt":
+        atk = APGDT(victim, steps=steps, n_classes=4)
+        adv = atk.forward(images, labels, draws=atk.draws(images.shape, 10), stats=stats)
+    elif name == "fab":
+        adv, _, found = fab._fab_run(victim, images, labels, images, labels, steps, 9, False,
+                                     stats)
+        stats["found"] = found.cpu().numpy()
+    elif name == "square":
+        adv, _ = square.square_linf(_float64_copy(victim), images, labels, eps, 50,
+                                    square.query_draws(g, images.shape, 50), loss="margin",
+                                    stats=stats)
+    elif name == "one_pixel":
+        n, c = images.shape[0], images.shape[-1]
+        draws = one_pixel.evolution_draws(g, n, 10, 2 * (2 + c), 3)
+        adv, _, _ = one_pixel.one_pixel_de(victim, images, labels, steps=3, pixels=2, pop=10,
+                                           inf_batch=32, targeted=False, draws=draws,
+                                           stats=stats)
+    elif name == "autoattack":
+        atk = AutoAttack(victim, steps=steps, n_queries=50)
+        adv = atk.forward(images, labels, stats=stats)
+    else:
+        raise ValueError(name)
+    return adv.detach().cpu(), stats
+
+
+def _same_decisions(a, b) -> bool:
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_decisions(x, y) for x, y in zip(a, b))
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+def check_grid_against_cpu(dev) -> dict:
+    """Every family of the grid on the tiny victim at 32x32 on the card
+    against the CPU, with the same host draws, under deterministic cuDNN:
+    the adversaries within 1e-4 and every decision count equal. Returns
+    each family's max_abs_err."""
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+
+    cpu = torch.device("cpu")
+    victim_cpu = create_model("tiny", device=cpu, seed=1)
+    victim_dev = create_model("tiny", device=dev, state_dict=victim_cpu.net.state_dict())
+    images = torch.rand((8, 32, 32, 3), generator=torch.Generator().manual_seed(5))
+    labels = victim_cpu.predict(images)
+    errs, bad = {}, []
+    with _deterministic_cudnn():
+        for name in GRID_FAMILIES:
+            adv_cpu, stats_cpu = grid_family_run(name, victim_cpu, images, labels)
+            adv_dev, stats_dev = grid_family_run(name, victim_dev, images.to(dev), labels.to(dev))
+            errs[name] = float((adv_dev - adv_cpu).abs().max())
+            same = stats_cpu.keys() == stats_dev.keys() and all(
+                _same_decisions(stats_cpu[k], stats_dev[k]) for k in stats_cpu)
+            if not (errs[name] <= 1e-4 and same):
+                bad.append(name)
+            counts = {k: (len(v) if isinstance(v, list) else
+                          int(np.sum(v)) if np.ndim(v) else int(v)) for k, v in stats_cpu.items()}
+            print(f"  grid {name} card vs CPU: max_abs_err {errs[name]:.3e} (tol 1e-4), "
+                  f"decisions {'equal' if same else 'DIFFER'} {counts}")
+    if bad:
+        raise AssertionError(f"the grid on the card disagrees with the CPU: {bad}")
+    return errs
+
+
+def _grid_attacks(victim):
+    """(label, build(warm) -> attack, bounded) for each row of the reference
+    grid at this phase's cuts; ``build(True)`` is the warm-up, the same
+    attack at the same batch with its budget cut to one step or query
+    where a full warm-up would double a long run."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import (
+        APGD, APGDT, BIM, CW, DIFGSM, EOTPGD, FAB, FFGSM, FGSM, GN, MIFGSM, PGD, RFGSM, TPGD,
+        VANILA, AutoAttack, OnePixel, Square)
+
+    eps, a, steps = GRID_EPS, GRID_ALPHA, 10
+    return [
+        ("vanila", lambda warm: VANILA(victim), True),
+        ("gn sigma=0.1", lambda warm: GN(victim, sigma=0.1), False),
+        ("fgsm", lambda warm: FGSM(victim, eps=eps), True),
+        ("ffgsm alpha=10/255", lambda warm: FFGSM(victim, eps=eps, alpha=10 / 255), True),
+        ("rfgsm", lambda warm: RFGSM(victim, eps=eps, alpha=a, steps=steps), True),
+        ("pgd", lambda warm: PGD(victim, eps=eps, alpha=a, steps=steps), True),
+        ("bim", lambda warm: BIM(victim, eps=eps, alpha=a, steps=steps), True),
+        ("mifgsm decay=0.1", lambda warm: MIFGSM(victim, eps=eps, alpha=a, steps=steps,
+                                                 decay=0.1), True),
+        ("tpgd", lambda warm: TPGD(victim, eps=eps, alpha=a, steps=steps), True),
+        ("eotpgd eot_iter=2", lambda warm: EOTPGD(victim, eps=eps, alpha=a,
+                                                  steps=1 if warm else steps, eot_iter=2), True),
+        ("difgsm p=0.5 rr=0.9", lambda warm: DIFGSM(victim, eps=eps, alpha=a, steps=steps,
+                                                    diversity_prob=0.5, resize_rate=0.9), True),
+        ("cw c=1 lr=0.001", lambda warm: CW(victim, c=1.0, steps=steps, lr=0.001), False),
+        ("apgd ce", lambda warm: APGD(victim, eps=eps, steps=steps, loss="ce"), True),
+        ("apgdt n_classes=10", lambda warm: APGDT(victim, eps=eps, steps=1 if warm else steps,
+                                                  n_classes=2 if warm else 10), True),
+        ("fab n_classes=10", lambda warm: FAB(victim, eps=eps, steps=1 if warm else 5,
+                                              n_classes=10), False),
+        ("fab-t n_classes=10", lambda warm: FAB(victim, eps=eps, steps=1 if warm else 5,
+                                                n_classes=2 if warm else 10, targeted=True),
+         False),
+        ("square ce", lambda warm: Square(victim, eps=eps, n_queries=2 if warm else 100,
+                                          loss="ce"), True),
+        ("onepixel pixels=5 inf_batch=50", lambda warm: OnePixel(
+            victim, pixels=5, inf_batch=50, steps=0 if warm else 10), False),
+        ("autoattack Linf n_classes=1000", lambda warm: AutoAttack(
+            victim, norm="Linf", eps=eps, n_classes=1000, steps=1 if warm else steps,
+            n_queries=2 if warm else 100), True),
+    ]
+
+
+def torchattacks_grid(dev, model: str = "resnet50", size: int = 224, n: int = 64) -> dict:
+    """The reference's torchattacks grid (``benchmarks/baseline_suite_bench.py``)
+    on ResNet-50 at 224x224, batch 64, eps 8/255 and alpha 2/255, the
+    classifier tempered; each row after a warm-up, with its wall, fooled
+    share and largest l∞ distance; the bounds ([0, 1], the budget of each
+    fixed-budget attack, AutoAttack's budget where it changed an image);
+    PGD and Square traced; then every family on the card against the CPU.
+    The path launches neither kernel, which it checks. Returns each row's
+    wall. (The keyword arguments shrink the run for a rehearsal on the
+    CPU.)"""
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+
+    _zero_counts()
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    images = torch.rand((n, size, size, 3), generator=torch.Generator(device=dev).manual_seed(11),
+                        device=dev)
+    gap, probs = _temper(victim, images)
+    labels = victim.predict(images)
+    print(f"torchattacks grid on {model} {size}x{size}, b{n}, eps 8/255, alpha 2/255, fp32: "
+          f"classifier divided by the median top-2 logit gap {gap:.4f}; clean top-1 probability "
+          f"median {float(probs.median()):.6f}, {labels.unique().numel()} distinct labels. Cuts "
+          "of depth: 100 -> 10 steps for the gradient attacks (EOTPGD eot_iter=2, DIFGSM p=0.5 "
+          "rr=0.9, MIFGSM decay=0.1), CW c=1 lr=0.001 at 10 steps, APGD-CE and APGD-T "
+          "(n_classes=10) at 10 steps, FAB and FAB-T (n_classes=10) at 5, Square (ce) at 100 "
+          "queries of 5000, OnePixel pixels=5 inf_batch=50 at its default 10 generations, "
+          "AutoAttack (Linf, n_classes=1000) at 10 steps and 100 Square queries")
+    walls, traced = {}, {"pgd": None, "square ce": None}
+    for label, build, bounded in _grid_attacks(victim):
+        build(True)(images, labels)  # warm-up
+        attack = build(False)
+        adv, wall = _timed_run(lambda: attack(images, labels))
+        walls[label] = wall
+        dist = (adv - images).abs().flatten(1).amax(1)
+        print(f"grid {label}: wall {wall:.3f} s, fooled share "
+              f"{_fooled_share(victim, adv, images):.4f}, l∞ max {float(dist.max()):.6f}")
+        if adv.shape != images.shape or not bool(torch.isfinite(adv).all()) or not (
+                float(adv.min()) >= 0 and float(adv.max()) <= 1):
+            raise AssertionError(f"grid {label}: adversaries leave [0, 1]")
+        if bounded and not float(dist.max()) <= GRID_EPS + 1e-5:
+            raise AssertionError(f"grid {label}: l∞ budget broken: {float(dist.max())}")
+        if label in traced:
+            print_device_breakdown(f"grid {label}", lambda: attack(images, labels), wall)
+    errs = check_grid_against_cpu(dev)
+    launches = (fused_perturb.launches, fused_adamw_project.launches)
+    print(f"torchattacks grid: {sum(walls.values()):.1f} s in the timed rows; fused_perturb / "
+          f"fused_adamw_project launches {launches[0]} / {launches[1]} (the path runs neither "
+          f"kernel); card vs CPU max_abs_err {max(errs.values()):.3e}")
+    if launches != (0, 0):
+        raise AssertionError(f"torchattacks grid launched a kernel: {launches}")
+    return walls
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1832,6 +2061,7 @@ def main() -> None:
         kernels[0]["launches"] += perturb
         kernels[1]["launches"] += adamw
     timed("universal baselines", universal_baselines, dev)
+    timed("torchattacks grid", torchattacks_grid, dev)
     perturb, adamw, (perturb_row, adamw_row) = timed("adilr", adilr, dev)
     kernels[0]["launches"] += perturb
     kernels[1]["launches"] += adamw

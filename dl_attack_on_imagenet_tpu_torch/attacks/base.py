@@ -26,7 +26,7 @@ class Attack:
         """Targeted => second most probable class, else the given labels."""
         if not self.targeted:
             return labels
-        return torch.argsort(self.victim(images), dim=-1)[:, -2]
+        return torch.argsort(self.victim(images), dim=-1, stable=True)[:, -2]
 
     @torch.no_grad()
     def predict(self, images: torch.Tensor) -> torch.Tensor:
@@ -35,8 +35,29 @@ class Attack:
     def forward(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def __call__(self, images, labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def __call__(self, images, labels: Optional[torch.Tensor] = None, **kwargs) -> torch.Tensor:
+        """``kwargs`` go to ``forward``: the seeded attacks take their random
+        draws there (``draws=``) in place of their own."""
         images = torch.as_tensor(images, dtype=torch.float32, device=self.victim.device)
         if labels is None:
             labels = self.predict(images)
-        return self.forward(images, torch.as_tensor(labels, device=images.device))
+        return self.forward(images, torch.as_tensor(labels, device=images.device), **kwargs)
+
+
+class Seeded(Attack):
+    """An attack that draws: a per-instance call counter, as the JAX
+    package's classes fold it into ``PRNGKey(seed)``, so calling one
+    instance twice on the same inputs draws anew. Draws come from a host
+    ``torch.Generator`` seeded from ``(seed, call, run)`` and are moved to
+    the device afterwards, so the card and the CPU see the same ones."""
+
+    def __init__(self, victim: VictimModel, name: str, targeted: bool = False, seed: int = 0):
+        super().__init__(victim, name, targeted)
+        self.seed = seed
+        self._rng_calls = 0
+
+    def _generator(self, run: int = 0) -> torch.Generator:
+        """The host generator of this call's ``run``-th run (restart or
+        target rank)."""
+        return torch.Generator().manual_seed(
+            (self.seed * 1_000_003 + self._rng_calls) * 1_000_033 + run)

@@ -16,7 +16,14 @@ from .laplace import (
     laplace_fit_per_atom,
     laplace_sample,
 )
-from .losses import attack_loss, cross_entropy_mean, cross_entropy_sum, cw_margin_loss
+from .losses import (
+    attack_loss,
+    cross_entropy_mean,
+    cross_entropy_sum,
+    cw_margin_loss,
+    dlr_loss,
+    dlr_loss_targeted,
+)
 from .projections import (
     clamp_image,
     l1_ball_project,
@@ -41,6 +48,8 @@ __all__ = [
     "dict_flatten",
     "dict_gram",
     "dict_pinv",
+    "dlr_loss",
+    "dlr_loss_targeted",
     "fused_adamw_project",
     "fused_adamw_project_reference",
     "fused_perturb",

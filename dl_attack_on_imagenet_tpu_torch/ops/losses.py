@@ -1,4 +1,5 @@
-"""Attack losses: CW margin ('logits') and cross-entropy, targeted/untargeted.
+"""Attack losses: CW margin ('logits') and cross-entropy, targeted/untargeted,
+and the DLR losses of APGD.
 
 Port of ``dl_attack_on_imagenet_tpu/ops/losses.py``.
 """
@@ -47,6 +48,36 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
 def cross_entropy_mean(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean-reduced softmax cross entropy."""
     return torch.mean(_nll(logits, labels))
+
+
+def true_and_runner_up(logits: torch.Tensor, labels: torch.Tensor):
+    """Per sample, the label's logit and the largest other logit (``amax``
+    splits the gradient among tied maxima, as JAX's ``max`` does)."""
+    true_logit = logits.gather(1, labels[:, None])[:, 0]
+    hot = F.one_hot(labels, logits.shape[-1]) > 0
+    return true_logit, torch.amax(torch.where(hot, -torch.inf, logits), dim=-1)
+
+
+def dlr_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Difference-of-Logits-Ratio loss, per sample (Croce & Hein 2020,
+    eq. 6), maximized by APGD-DLR: ``-(z_y - max_{i != y} z_i) / (z_pi1 -
+    z_pi3 + 1e-12)`` with pi sorting the logits descending. The sort is
+    stable, as JAX's, so a tie sends the gradient to the same logit."""
+    true_logit, other = true_and_runner_up(logits, labels)
+    sorted_z = torch.sort(logits, dim=-1, stable=True).values  # ascending
+    z1, z3 = sorted_z[:, -1], sorted_z[:, -3]
+    return -(true_logit - other) / (z1 - z3 + 1e-12)
+
+
+def dlr_loss_targeted(logits: torch.Tensor, labels: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+    """Targeted DLR, per sample (eq. 7, APGD-T), maximized:
+    ``-(z_y - z_t) / (z_pi1 - (z_pi3 + z_pi4) / 2 + 1e-12)``."""
+    true_logit = logits.gather(1, labels[:, None])[:, 0]
+    target_logit = logits.gather(1, targets[:, None])[:, 0]
+    sorted_z = torch.sort(logits, dim=-1, stable=True).values
+    z1, z3, z4 = sorted_z[:, -1], sorted_z[:, -3], sorted_z[:, -4]
+    return -(true_logit - target_logit) / (z1 - 0.5 * (z3 + z4) + 1e-12)
 
 
 def attack_loss(

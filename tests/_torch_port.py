@@ -49,3 +49,24 @@ def victim_pair(name: str, input_size=None, seed: int = 0, key: int = 0):
 def t(a) -> torch.Tensor:
     """A float32 torch copy of a numpy array."""
     return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+
+def max_err(got, want) -> float:
+    """The largest absolute difference of two arrays or tensors, in float64."""
+    return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+
+
+def assert_signed_close(got, want, meets=1e-5):
+    """The bound of a signed-step l∞ trajectory (``tests/test_torch_parity_uap.py``'s):
+    atol 2e-3 with under 1% of the elements beyond 5e-5, since a gradient
+    element at the noise floor can flip its sign; and ``meets``, what the
+    port meets on the test's inputs."""
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert float(diff.max()) <= 2e-3 and float((diff > 5e-5).mean()) < 0.01
+    assert float(diff.max()) <= meets
+
+
+def call_key(seed: int = 0, call: int = 1):
+    """The key a JAX attack class folds from ``PRNGKey(seed)`` on its
+    ``call``-th call."""
+    return jax.random.fold_in(jax.random.PRNGKey(seed), call)

@@ -10,11 +10,15 @@ size 1 over NCCL against its serial replay; DeepFool and a UAP-PGD epoch on
 the card against the CPU, and data-parallel UAP-PGD at world size 1 over
 NCCL against its replay; both kernels at ADILR's shapes (fused_perturb at
 K=10, fused_adamw_project without a clamp against torch.optim.AdamW), and
-ADILR's forwards and AdamW trainer on the card against the CPU. Every test
-here needs a GPU and skips without one.
+ADILR's forwards and AdamW trainer on the card against the CPU; the
+torchattacks grid's PGD, DIFGSM, CW, APGD-T, FAB, Square and OnePixel on
+the card against the CPU with the same draws (1e-4, equal decisions), and
+OnePixel's painting of duplicate coordinates. Every test here needs a GPU
+and skips without one.
 
-This file imports neither JAX nor the JAX package, so it also runs on a
-machine that has only PyTorch:
+This file imports neither JAX nor the JAX package (the grid's tests take
+their runs from ``chip_smoke.py``, which imports neither), so it also runs
+on a machine that has only PyTorch, from the repository's root:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_cuda.py
 """
@@ -639,3 +643,42 @@ def test_adilr_adamw_batches_on_the_card_match_the_cpu(cuda):
     assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-4
     assert float((out[0][1] - out[1][1]).abs().max()) <= 1e-4
     assert out[1][2] == pytest.approx(out[0][2], rel=1e-4)
+
+
+@pytest.mark.parametrize("family", ["pgd", "difgsm", "cw", "apgdt", "fab", "square",
+                                    "one_pixel"])
+def test_grid_family_on_the_card_matches_the_cpu(cuda, family):
+    # The same host draws on both sides, deterministic cuDNN: adversaries
+    # within 1e-4 and every decision equal (APGD-T's step sizes after each
+    # checkpoint, FAB's found flags and chosen candidates, Square's queries
+    # and accepts, OnePixel's generations and accepts).
+    from chip_smoke import _deterministic_cudnn, _same_decisions, grid_family_run
+
+    victim_cpu, victim_dev = _tiny_pair(cuda)
+    images = torch.rand((8, 32, 32, 3), generator=torch.Generator().manual_seed(5))
+    labels = victim_cpu.predict(images)
+    with _deterministic_cudnn():
+        adv_cpu, stats_cpu = grid_family_run(family, victim_cpu, images, labels)
+        adv_dev, stats_dev = grid_family_run(family, victim_dev, images.to(cuda),
+                                             labels.to(cuda))
+    assert stats_dev.keys() == stats_cpu.keys()
+    for key in stats_cpu:
+        assert _same_decisions(stats_dev[key], stats_cpu[key]), key
+    assert float((adv_dev - adv_cpu).abs().max()) <= 1e-4
+
+
+def test_one_pixel_paints_duplicate_coordinates_in_order_on_the_card(cuda):
+    # A later pixel wins a duplicate coordinate on the card as on the CPU.
+    from dl_attack_on_imagenet_tpu_torch.attacks.one_pixel import _apply_candidate
+
+    g = torch.Generator().manual_seed(2)
+    images = torch.rand((64, 8, 8, 3), generator=g)
+    cands = torch.cat([torch.rand((64, 4, 2), generator=g) * 8,
+                       torch.rand((64, 4, 3), generator=g)], -1)
+    cands[:, 2, :2] = cands[:, 0, :2]
+    cands[:, 3, :2] = cands[:, 0, :2]
+    got = _apply_candidate(images.to(cuda), cands.to(cuda)).cpu()
+    want = _apply_candidate(images, cands)
+    assert torch.equal(got, want)
+    rows, cols = cands[:, 0, 0].long(), cands[:, 0, 1].long()
+    assert torch.equal(got[torch.arange(64), rows, cols], cands[:, 3, 2:])

@@ -30,7 +30,10 @@ _IMPORT_EVERY_MODULE = textwrap.dedent("""
                  "models.fold", "cli._victim", "cli.demo", "cli.main", "parallel",
                  "parallel.dist", "parallel.mesh", "parallel.health", "parallel.adil_dp",
                  "attacks.uap_pgd", "attacks.deepfool", "attacks.fast_uap",
-                 "attacks.universal_pert", "ops.laplace", "attacks.adil_regularized"):
+                 "attacks.universal_pert", "ops.laplace", "attacks.adil_regularized",
+                 "attacks.pgd", "attacks.fgsm_family", "attacks.cw", "attacks.apgd",
+                 "attacks.fab", "attacks.square", "attacks.one_pixel", "attacks.autoattack",
+                 "ops.losses"):
         assert port.__name__ + "." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m == "dl_attack_on_imagenet_tpu"
