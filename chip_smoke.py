@@ -17,7 +17,8 @@ phase, and exits non-zero if any phase fails:
    for information;
 4. checks the served path and three training steps against the plain path
    on the CPU at a small size, and every victim family's logits and CW input
-   gradient on the card against the CPU at a small input size;
+   gradient on the card against the CPU at a small input size (DenseNet-121
+   and GoogLeNet also with their space-to-depth stems);
 5. serves ADiL on ResNet-50 at 224x224, K=100 atoms, batch 64, eps 8/255
    l∞, CW loss: supervised DDrague, unsupervised best-of-trials sampling and
    supervised AdamW on the codes, each through the ``ADIL`` entry points,
@@ -96,9 +97,35 @@ phase, and exits non-zero if any phase fails:
    timed beside their bounds (``fused_adamw_project`` also beside
    ``torch.optim.AdamW(fused=True)``); and ADILR on the card against the CPU
    on the tiny victim;
-16. prints the whole run's time and one ``{"kernels": [...]}`` line, each
-   kernel's ADILR shape under ``"adilr"``, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+16. holds ``fused_perturb`` against its twin at N=128 (``cli.generate``'s
+   batch) and both kernels on the space-to-depth column order, each timed
+   beside its twin and its bound;
+17. runs ``cli.generate`` through its ``main`` on ResNet-50 at 224x224 with a
+   seeded K=100 dictionary: a blob of 300 seeded images written by
+   ``cli.dataset``'s writer (batches of 128, 128 and 44), served supervised
+   (30 DDrague steps), unsupervised (10 trials) and with ``--save-images
+   --limit 128``, then a folder of 8 JPEGs that the phase writes (PIL
+   decodes them where the native loader does not build), printing each
+   batch's wall, images/s, fooling rate and the launches (1 and 10 a
+   batch), and one traced batch's busy share; then ``cli.import_artifacts``
+   on reference-format ``torch.save`` files (ADIL's ``[d (3,224,224,100),
+   v, ...]``, UAP-PGD's ``[e (1,3,224,224), ...]``) and one supervised
+   batch of 64 served from the imported dictionary;
+18. runs the space-to-depth layout on ResNet-50 with an S2D stem: the stem,
+   the ``--fast-victim`` build and the blocked twin against the plain stem
+   and the CPU (logits and CW input gradient, 1e-4); 10 chained ``gd``
+   steps at b64 blocked beside standard, timed and traced, and 3 under
+   deterministic cuDNN held against each other; a supervised DDrague
+   batch of 64 through the twin beside the standard layout; ``ADIL``
+   learning with ``pipeline_epochs`` True beside False (128 images, b64,
+   2 epochs; D and v within 1e-5); and data-parallel learning at world
+   size 1 with ``blocked=True`` against its serial replay on the twin;
+19. runs one ``cli.generate`` batch inside ``utils.trace`` and checks that
+   the trace file holds CUDA kernels;
+20. prints the whole run's time and one ``{"kernels": [...]}`` line, each
+   kernel's ADILR shape under ``"adilr"``, ``fused_perturb`` at N=128 under
+   ``"n128"`` and both kernels on the blocked layout under ``"blocked"``,
+   then the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path runs with the kernels' launch counts set to 0 just before it, and
 fails if a kernel of that path was not launched as often as the path must.
@@ -131,6 +158,9 @@ EPS = 8 / 255
 # against the CPU: (registry name, input size).
 SMALL_FAMILIES = (("densenet121", 32), ("mobilenet_v2", 32), ("googlenet", 32),
                   ("inception_v3", 75), ("vgg11", 32), ("vit_tiny", 32))
+# The families with a space-to-depth stem beside the ResNets, built with it
+# for the same check.
+SMALL_S2D = (("densenet121", 32), ("googlenet", 32))
 # The zoo phase's victims beside the main path's ResNet-50, DenseNet-121
 # and MobileNetV2.
 ZOO = ("densenet169", "googlenet", "inception_v3", "vgg16", "vit_b16")
@@ -447,10 +477,13 @@ def check_families_against_cpu(dev) -> None:
 
     g = torch.Generator().manual_seed(3)
     labels = torch.tensor([1, 3])
-    for name, size in SMALL_FAMILIES:
-        victim_cpu = create_model(name, input_size=size, device="cpu", seed=1)
+    builds = ([(name, size, {}) for name, size in SMALL_FAMILIES]
+              + [(name, size, {"stem_s2d": True}) for name, size in SMALL_S2D])
+    for name, size, kwargs in builds:
+        victim_cpu = create_model(name, input_size=size, device="cpu", seed=1, **kwargs)
         victim_dev = create_model(name, input_size=size, device=dev,
-                                  state_dict=victim_cpu.net.state_dict())
+                                  state_dict=victim_cpu.net.state_dict(), **kwargs)
+        name = name + (" stem_s2d" if kwargs else "")
         x = torch.rand((2, size, size, 3), generator=g)
         out = []
         for victim, d in ((victim_cpu, torch.device("cpu")), (victim_dev, dev)):
@@ -2003,6 +2036,591 @@ def torchattacks_grid(dev, model: str = "resnet50", size: int = 224, n: int = 64
     return walls
 
 
+# -- the tenth slice: cli.generate, cli.import_artifacts, the S2D layout --
+
+
+def _layouts_close(name: str, got, want, start, spread=None, tol: float = 0.1) -> float:
+    """Hold the blocked layout's result against the standard one's, both
+    moved from ``start``: their moves within ``tol`` in relative l2. On a
+    random ResNet-50 at 224x224 the two layouts' input gradients part by
+    about 0.5% in l2 (max-pool windows whose top two values are within
+    rounding route to other inputs, as the card and the CPU do with one
+    layout), and signed steps carry that into the state, so no elementwise
+    bound holds; a wrong column order would give about 1.4. ``spread``, the
+    same distance between two standard runs without deterministic cuDNN,
+    is printed beside it. Returns the distance."""
+    move = (torch.as_tensor(want) - torch.as_tensor(start)).float()
+    diff = (torch.as_tensor(got) - torch.as_tensor(want)).float()
+    rel = float(diff.norm() / move.norm())
+    extra = f"; two standard runs without deterministic cuDNN {spread:.3e}" if spread else ""
+    print(f"  {name}: the moves {rel:.3e} apart in relative l2 (tol {tol:g}), max_abs_diff "
+          f"{float(diff.abs().max()):.3e}{extra}")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: the two layouts part: {rel}")
+    return rel
+
+
+def check_kernels_at_new_shapes(dev, n: int = 128, k: int = 100, h: int = 224):
+    """``fused_perturb`` at N=128, the batch ``cli.generate`` serves, and both
+    kernels on the space-to-depth layout (D and x blocked, the columns
+    permuted), each against its plain twin, timed beside the twin and the
+    bound. Returns the (fused_perturb, fused_adamw_project) rows."""
+    from dl_attack_on_imagenet_tpu_torch.models import space_to_depth
+    from dl_attack_on_imagenet_tpu_torch.ops import (
+        fused_adamw_project, fused_adamw_project_reference, fused_perturb,
+        fused_perturb_reference)
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    m = h * h * 3
+    d = torch.rand((k, h, h, 3), generator=g, device=dev) * 2 - 1
+    x = torch.rand((n, h, h, 3), generator=g, device=dev)
+    v = torch.randn((n, k), generator=g, device=dev) * 0.01
+    d_b, x_b = space_to_depth(d), space_to_depth(x)
+
+    def plain(v_, d_, x_, eps):
+        return fused_perturb_reference(v_, d_.reshape(k, -1), x_.reshape(x_.shape[0], -1),
+                                       eps).reshape(x_.shape)
+
+    rows = {}
+    for label, (dd, xx) in (("n128", (d, x)), ("blocked", (d_b, x_b))):
+        err = max(float((fused_perturb(v, dd, xx, eps) - plain(v, dd, xx, eps)).abs().max())
+                  for eps in (EPS, float("inf")))
+        ms = _time_ms(lambda: fused_perturb(v, dd, xx, EPS))
+        plain_ms = _time_ms(lambda: plain(v, dd, xx, EPS))
+        bound_ms, bound_by = fused_perturb_bound_ms(n, k, m)
+        rows[label] = {"shape": [n, k, m], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                       "bound_share": bound_ms / ms}
+        print(f"fused_perturb [{label}: N={n} K={k} M={m}, D {tuple(dd.shape)}]: max_abs_err "
+              f"{err:.3e} (tol 1e-5), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
+        if not err <= 1e-5:
+            raise AssertionError(f"fused_perturb [{label}] disagrees with its twin: {err}")
+    same = float((space_to_depth(fused_perturb(v, d, x, EPS)) - fused_perturb(v, d_b, x_b, EPS))
+                 .abs().max())
+    print(f"  blocked against the unblocked launch, blocked afterwards: max_abs_diff {same:.3e}")
+    if not same <= 1e-6:
+        raise AssertionError(f"fused_perturb on the blocked layout is not the permuted result: {same}")
+
+    def adamw_inputs(flat):
+        gg = torch.Generator(device=dev).manual_seed(9)
+        return (torch.rand(flat.shape, generator=gg, device=dev) * 2.4 - 1.2,
+                torch.randn(flat.shape, generator=gg, device=dev) * 1e-3,
+                torch.randn(flat.shape, generator=gg, device=dev) * 1e-4,
+                torch.rand(flat.shape, generator=gg, device=dev) * 1e-6)
+
+    d_flat = space_to_depth(d).reshape(k, -1)
+    args = adamw_inputs(d_flat)
+    want = fused_adamw_project_reference(*args, 3, 0.01, clip_val=1.0)
+    got = [t.clone() for t in args]
+    fused_adamw_project(*got, 3, 0.01, 1.0)
+    err = max(float((got[0] - want[0]).abs().max()), float((got[2] - want[1]).abs().max()),
+              float(((got[3] - want[2]).abs() / want[2].abs().clamp_min(1e-30)).max()))
+    scratch = [t.clone() for t in args]
+    ms = _time_ms(lambda: fused_adamw_project(*scratch, 3, 0.01, 1.0))
+    plain_ms = _time_ms(lambda: fused_adamw_project_reference(*scratch, 3, 0.01))
+    bound_ms, bound_by = fused_adamw_project_bound_ms(d_flat.numel())
+    print(f"fused_adamw_project [blocked D {tuple(d_flat.shape)} in the space-to-depth column "
+          f"order]: max_abs_err {err:.3e} (tol 1e-6; nu relative), kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not err <= 1e-6:
+        raise AssertionError(f"fused_adamw_project on the blocked layout disagrees: {err}")
+    adamw_row = {"blocked": {"shape": list(d_flat.shape), "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": None, "bound_share": bound_ms / ms}}
+    return rows, adamw_row
+
+
+def _save_dictionary(dev, cache, model: str, size: int, k: int = 100):
+    """A seeded projected random dictionary of ``k`` atoms for ``model``."""
+    from dl_attack_on_imagenet_tpu_torch.attacks.adil_core import AdilConfig, init_dictionary
+    from dl_attack_on_imagenet_tpu_torch.ops import project_dictionary
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    d = project_dictionary(init_dictionary(g, (size, size, 3), AdilConfig(n_atoms=k)))
+    cache.save({"d": d}, "ImageNet", model=model)
+
+
+def _jpeg_tree(root: str, n: int) -> str:
+    """``n`` seeded 300x260 JPEGs in two class folders of an ILSVRC tree."""
+    from PIL import Image
+
+    rng = np.random.default_rng(4)
+    for i in range(n):
+        folder = os.path.join(root, "ILSVRC", "Data", "val", f"n0000000{i % 2}")
+        os.makedirs(folder, exist_ok=True)
+        Image.fromarray((rng.random((260, 300, 3)) * 255).astype(np.uint8)).save(
+            os.path.join(folder, f"{i}.JPEG"))
+    return root
+
+
+def _read_report(out: str):
+    with open(os.path.join(out, "report.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def generate_phase(dev, root: str, model: str = "resnet50", size: int = 224, n: int = 300,
+                   batch: int = 128, k: int = 100, steps: int = 30, n_folder: int = 8):
+    """``cli.generate`` on ``model`` through its ``main``: a blob of ``n``
+    seeded images written by ``cli.dataset``'s writer (two full batches and a
+    short one), served supervised (``steps`` DDrague steps), unsupervised
+    (10 trials) and once more with ``--save-images --limit batch``; then a
+    folder of JPEGs that the phase writes, and one traced batch for the
+    busy share. Returns (fused_perturb launches, the blob, the dictionary
+    directory, the tempered weights)."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.cli import dataset, generate
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.runtime import get_runtime, host_loader
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    dicts = os.path.join(root, "dicts")
+    _save_dictionary(dev, ArtifactCache(dicts), model, size, k)
+    t0 = time.perf_counter()
+    images = np.random.default_rng(5).random((n, size, size, 3), dtype=np.float32)
+    blob = os.path.join(root, "blob.npz")
+    dataset.save_blob(blob, images, np.zeros(n), ["synthetic"])
+    print(f"generate: blob of {n} seeded images at {size}x{size} written by cli.dataset.save_blob "
+          f"({os.path.getsize(blob) / 1e6:.1f} MB, {time.perf_counter() - t0:.1f} s)")
+    # The seed-0 net's softmax is 1 in fp32, where the CLI's CE loss has no
+    # gradient and DDrague stops after one step: the CLI gets the tempered
+    # net (as the baselines' phase tempers it) through --weights.
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    gap, top1 = _temper(victim, torch.as_tensor(images[:batch], device=dev))
+    weights = os.path.join(root, f"{model}_tempered.pt")
+    torch.save({name: t.cpu() for name, t in victim.net.state_dict().items()}, weights)
+    print(f"generate: the classifier divided by the median top-2 logit gap {gap:.2f}; clean "
+          f"top-1 probability median {float(top1.median()):.4f}")
+    common = ["--model", model, "--dict-dir", dicts, "--device", str(dev), "--input-size",
+              str(size), "--steps-inference", str(steps), "--batch-size", str(batch),
+              "--weights", weights]
+    n_batches = -(-n // batch)
+    runs = [  # (name, flags, rows served, launches a batch)
+        ("supervised", ["--blob", blob], n, 1),
+        ("unsupervised", ["--blob", blob, "--mode", "unsupervised"], n, 10),
+        ("supervised --save-images", ["--blob", blob, "--save-images", "--limit", str(batch)],
+         batch, 1),
+        ("supervised folder", ["--data-root", _jpeg_tree(os.path.join(root, "jpegs"), n_folder)],
+         n_folder, 1),
+    ]
+    total, summaries = 0, {}
+    for name, flags, rows, per_batch in runs:
+        if "folder" in name:
+            print("generate folder path: " + ("the native loader" if get_runtime() is not None
+                  else "PIL decodes (the native loader did not build: "
+                       f"{(host_loader.build_error or '').strip().splitlines()[-1:]})"))
+        out = os.path.join(root, name.replace(" ", "_").replace("-", ""))
+        args = generate.build_argparser().parse_args(common + flags + ["--out-dir", out])
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        summary = generate.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_perturb.launches
+        report = _read_report(out)
+        want_batches = -(-rows // batch)
+        print(f"generate {name}: wall {wall:.2f} s (victim build included), "
+              f"{summary['images_per_sec']:.2f} images/s in the summary, fooling rate "
+              f"{summary['fooling_rate']:.4f}, fused_perturb launches {launches} "
+              f"({per_batch} a batch)")
+        for r in report:
+            print(f"  batch at {int(r['step'])}: {int(r['n'])} images, {r['seconds']:.3f} s, "
+                  f"{r['n'] / r['seconds']:.2f} images/s, fooling {r['fooling']:.4f}, "
+                  f"mse {r['mse']:.6f}")
+        if summary["total"] != rows or len(report) != want_batches:
+            raise AssertionError(f"generate {name}: {summary['total']} rows in {len(report)} "
+                                 f"batches, not {rows} in {want_batches}")
+        if launches != per_batch * want_batches:
+            raise AssertionError(f"generate {name}: {launches} launches, the path makes "
+                                 f"{per_batch * want_batches}")
+        if not all(np.isfinite(r["mse"]) and 0 <= r["fooling"] <= 1 for r in report):
+            raise AssertionError(f"generate {name}: bad report {report}")
+        if "save-images" in name:
+            from PIL import Image
+
+            pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+            first = np.asarray(Image.open(os.path.join(out, pngs[0])))
+            print(f"  {len(pngs)} PNGs, {pngs[0]} of shape {first.shape} {first.dtype}")
+            if len(pngs) != batch or first.shape != (size, size, 3):
+                raise AssertionError(f"generate {name}: {len(pngs)} PNGs of {first.shape}")
+        total += launches
+        summaries[name] = summary
+    # One batch again, traced, for the busy share against the second
+    # supervised batch's wall.
+    attack = ADIL(victim, eps=EPS, model_name=model, steps_inference=steps,
+                  cache=ArtifactCache(dicts))
+    x = torch.as_tensor(images[:batch], device=dev)
+    wall = _read_report(os.path.join(root, "supervised"))[min(1, n_batches - 1)]["seconds"]
+    print_device_breakdown("generate supervised batch", lambda: attack(x, None), wall)
+    return total, blob, dicts, weights
+
+
+def trace_phase(dev, root: str, blob: str, dicts: str, weights: str, model: str = "resnet50",
+                size: int = 224, batch: int = 128, steps: int = 5):
+    """One ``cli.generate`` batch (``steps`` DDrague steps) inside
+    ``utils.trace``: the trace file is written and holds CUDA kernels."""
+    from dl_attack_on_imagenet_tpu_torch.cli import generate
+    from dl_attack_on_imagenet_tpu_torch.utils import trace
+
+    log_dir = os.path.join(root, "trace")
+    args = generate.build_argparser().parse_args([
+        "--model", model, "--blob", blob, "--dict-dir", dicts, "--device", str(dev),
+        "--input-size", str(size), "--steps-inference", str(steps), "--limit", str(batch),
+        "--weights", weights, "--out-dir", os.path.join(root, "traced")])
+    t0 = time.perf_counter()
+    with trace(log_dir):
+        generate.main(args)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path = os.path.join(log_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"trace: one generate batch of {batch} ({steps} DDrague steps) traced in {wall:.1f} s "
+          f"into {path} ({os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, "
+          f"{kernels} CUDA kernels)")
+    if dev.type == "cuda" and not kernels:
+        raise AssertionError("trace: no CUDA kernel in the trace")
+
+
+def import_phase(dev, root: str, model: str = "resnet50", size: int = 224, k: int = 100,
+                 n_train: int = 128, n: int = 64) -> int:
+    """Reference-format artifacts written with ``torch.save`` (ADIL's ``[d
+    (C,H,W,K), v, loss, fooling, val]``, UAP-PGD's ``[e (1,C,H,W),
+    fooling]``), imported by ``cli.import_artifacts``, and served: one
+    supervised batch of ``n`` from the imported dictionary (CW loss, 30
+    DDrague steps, as the serve phase), one UAP-PGD batch. Returns the
+    fused_perturb launches of the served batch."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL, UAPPGD
+    from dl_attack_on_imagenet_tpu_torch.cli import import_artifacts
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    g = torch.Generator().manual_seed(7)
+    d_ref = torch.rand((3, size, size, k), generator=g) * 2 - 1
+    v_ref = torch.rand((n_train, k), generator=g) * 0.01
+    e_ref = (torch.rand((1, 3, size, size), generator=g) * 2 - 1) * 0.03
+    adil_src, uap_src = os.path.join(root, "ImageNet_ref.bin"), os.path.join(root, "attack.bin")
+    torch.save([d_ref, v_ref, [0.5, 0.4], [0.1, 0.2], 0.3], adil_src)
+    torch.save([e_ref, [0.2]], uap_src)
+    dicts = os.path.join(root, "imported")
+    t0 = time.perf_counter()
+    for kind, src in (("adil", adil_src), ("uappgd", uap_src)):
+        import_artifacts.main(["--kind", kind, "--src", src, "--model", model, "--cache", dicts])
+    print(f"import: two reference artifacts imported in {time.perf_counter() - t0:.2f} s")
+    cache = ArtifactCache(dicts)
+    d = cache.load("ImageNet", model=model)["d"]
+    e = cache.load("UAPPGD", model=model)["e"]
+    if not (np.array_equal(d, d_ref.permute(3, 1, 2, 0).numpy())
+            and np.array_equal(e, e_ref.permute(0, 2, 3, 1).numpy())):
+        raise AssertionError("import: the layouts were not converted")
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    images = torch.rand((n, size, size, 3), generator=torch.Generator(device=dev).manual_seed(6),
+                        device=dev)
+    attack = ADIL(victim, eps=EPS, n_atoms=k, loss="logits", cache=cache)
+    if not attack.is_trained:
+        raise AssertionError("import: ADIL does not find the imported dictionary")
+    attack(images[:2], None)  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    adv = attack(images, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_perturb.launches
+    fooled = float((victim.predict(adv) != victim.predict(images)).float().mean())
+    print(f"import: served a supervised batch of {n} from the imported dictionary in {wall:.2f} s, "
+          f"fooling {fooled:.4f}, fused_perturb launches {launches}")
+    if launches != 1 or not (bool(torch.isfinite(adv).all()) and 0 <= float(adv.min())
+                             and float(adv.max()) <= 1):
+        raise AssertionError(f"import: bad serve ({launches} launches)")
+    uap = UAPPGD(victim, cache=cache)
+    err = float((uap(images, None) - (images + torch.as_tensor(e, device=dev)).clamp(0, 1))
+                .abs().max())
+    print(f"import: UAP-PGD serves the imported perturbation: max_abs_err {err:.3e}")
+    if not err == 0.0:
+        raise AssertionError(f"import: UAP-PGD does not serve the imported e: {err}")
+    return launches
+
+
+def check_s2d_stems(dev, model: str = "resnet50", size: int = 224) -> None:
+    """The S2D stem on the card, batch 2. The stem alone (conv and
+    BatchNorm on the space-to-depth blocks, ``models.resnet.s2d_stem``)
+    against the plain ``conv1``/``bn1``: its output and its input gradient
+    under a random cotangent within 1e-5 of their largest values. Then the
+    whole ``model`` built with ``stem_s2d``, built as ``--fast-victim``
+    builds it (``stem_s2d``, then the BatchNorm fold) and its blocked twin,
+    each against the plain stem on the card and against the same build on
+    the CPU: logits within 1e-4 of the largest logit, and the CW input
+    gradient (at the predicted labels, as an attack takes it) within twice
+    the relative l2 distance of the plain stem's own card and CPU runs
+    (at least 1e-3). Not elementwise: at 224x224 some max-pool windows of
+    a random ResNet-50 hold two values within rounding, and two summation
+    orders then route the window's gradient to different inputs; the plain
+    stem's card and CPU runs part that way too, and their distance is
+    printed."""
+    from dl_attack_on_imagenet_tpu_torch.models import (
+        blocked_twin, create_model, depth_to_space, space_to_depth)
+    from dl_attack_on_imagenet_tpu_torch.models.fold import fold_victim
+    from dl_attack_on_imagenet_tpu_torch.models.layers import space_to_depth_nchw
+    from dl_attack_on_imagenet_tpu_torch.models.resnet import s2d_stem
+    from dl_attack_on_imagenet_tpu_torch.ops import attack_loss
+
+    cpu = torch.device("cpu")
+    plain = create_model(model, input_size=size, device=cpu, seed=0)
+    sd = plain.net.state_dict()
+    x = torch.rand((2, size, size, 3), generator=torch.Generator().manual_seed(3))
+    labels = plain.predict(x)
+
+    on_dev = create_model(model, input_size=size, device=dev, state_dict=sd)
+    xn = on_dev.norm(x.to(dev).permute(0, 3, 1, 2)).contiguous(memory_format=torch.channels_last)
+    net = on_dev.net
+    stems = []
+    for stem in (lambda t: net.bn1(net.conv1(t)),
+                 lambda t: s2d_stem(space_to_depth_nchw(t), net.conv1, net.bn1)):
+        xt = xn.clone().requires_grad_(True)
+        y = stem(xt)
+        co = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+        (grad,) = torch.autograd.grad((y * co).sum(), xt)
+        stems.append((y.detach(), grad))
+    errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(*stems)]
+    print(f"s2d stem {model} at {size}x{size}, the stem alone on the card: output max_abs_err "
+          f"{errs[0]:.3e}, input gradient {errs[1]:.3e}, each of its largest value (tol 1e-5)")
+    if not max(errs) <= 1e-5:
+        raise AssertionError(f"s2d stem: the blocked stem disagrees with conv1/bn1: {errs}")
+
+    def run(victim, d, blocked=False):
+        xt = (space_to_depth(x) if blocked else x).to(d).requires_grad_(True)
+        logits = victim(xt)
+        (grad,) = torch.autograd.grad(attack_loss(logits, labels.to(d), loss="logits"), xt)
+        return logits.detach().cpu(), (depth_to_space(grad) if blocked else grad).cpu()
+
+    def builds(d):
+        s2d = create_model(model, input_size=size, device=d, state_dict=sd, stem_s2d=True)
+        fast = fold_victim(create_model(model, input_size=size, device=d, state_dict=sd,
+                                        stem_s2d=True))
+        return {"stem_s2d": run(s2d, d), "--fast-victim": run(fast, d),
+                "blocked twin": run(blocked_twin(s2d), d, blocked=True)}
+
+    def errors(out, ref):
+        return (float((out[0] - ref[0]).abs().max()),
+                float((out[1] - ref[1]).norm() / ref[1].norm()),
+                float((out[1] - ref[1]).abs().max()))
+
+    ref = run(on_dev, dev)
+    if not float(ref[1].abs().max()) > 0:
+        raise AssertionError("s2d stem: the CW input gradient is 0, nothing would be compared")
+    floor = errors(ref, run(plain, cpu))
+    scale, tol = max(1.0, float(ref[0].abs().max())), max(1e-3, 2 * floor[1])
+    print(f"s2d stem {model}: |logits| up to {scale:.3e}, |gradient| up to "
+          f"{float(ref[1].abs().max()):.3e}; the plain stem on the card against the CPU: logits "
+          f"{floor[0]:.3e}, gradient rel l2 {floor[1]:.3e} (max {floor[2]:.3e})")
+    on_card, on_cpu = builds(dev), builds(cpu)
+    for name, out in on_card.items():
+        errs, cpu_errs = errors(out, ref), errors(out, on_cpu[name])
+        print(f"s2d stem {model} {name}: against the plain stem on the card logits "
+              f"{errs[0]:.3e}, gradient rel l2 {errs[1]:.3e} (max {errs[2]:.3e}); against the "
+              f"CPU logits {cpu_errs[0]:.3e}, gradient rel l2 {cpu_errs[1]:.3e} (max "
+              f"{cpu_errs[2]:.3e}) (tol 1e-4 x {scale:.3g}, {tol:.3e})")
+        if not all(e[0] <= 1e-4 * scale and e[1] <= tol for e in (errs, cpu_errs)):
+            raise AssertionError(f"s2d stem {name} disagrees: {errs} {cpu_errs}")
+
+
+def blocked_phase(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100,
+                  n_learn: int = 128, n_steps: int = 10):
+    """The space-to-depth layout on ``model`` with an S2D stem, each item in
+    both layouts with both walls: the stem alone (forward and input
+    gradient, CUDA events); 10 chained ``gd`` steps at b64 (timed and
+    traced) and 3 more under deterministic cuDNN held against each other;
+    a supervised DDrague batch of ``n`` served through the twin; learning
+    on ``n_learn`` images at b64 for 2 epochs through ``ADIL`` with
+    ``pipeline_epochs`` True and False (D and v within 1e-5 under
+    deterministic cuDNN); and data-parallel learning at world size 1 with
+    ``blocked=True`` against its serial replay on the twin (1e-5). Returns
+    the (fused_perturb, fused_adamw_project) launches."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.models import (
+        blocked_twin, create_model, depth_to_space, space_to_depth)
+    from dl_attack_on_imagenet_tpu_torch.models.layers import space_to_depth_nchw
+    from dl_attack_on_imagenet_tpu_torch.models.resnet import s2d_stem
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.parallel import auto_initialize, data_mesh
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    perturb, adamw = 0, 0
+    victim = create_model(model, input_size=size, device=dev, seed=0, stem_s2d=True)
+    twin = blocked_twin(victim)
+    shape, b_shape = (size, size, 3), (size // 2, size // 2, 12)
+    cfg = core.AdilConfig(eps=EPS, n_atoms=k, loss="logits", batch_size=n)
+    g = torch.Generator(device=dev).manual_seed(1)
+    images = torch.rand((n,) + shape, generator=g, device=dev)
+    state0 = core.init_state(g, shape, n, cfg)
+    idx, mask = torch.arange(n, device=dev), torch.ones(n, device=dev)
+
+    def layout(blocked: bool):
+        state = core.TrainState(**{f: (v.clone() if torch.is_tensor(v) else v)
+                                   for f, v in vars(state0).items()})
+        if blocked:
+            state.d = space_to_depth(core.d_image(state.d, shape)).reshape(k, -1)
+            state.d_mu, state.d_nu = torch.zeros_like(state.d), torch.zeros_like(state.d)
+            return twin, state, space_to_depth(images)
+        return victim, state, images
+
+    # The stem alone at b64: forward and input gradient under a random
+    # cotangent, cuDNN's 3-channel 7x7/s2 convolution against the 4x4/s1
+    # one over 12 channels (and its pad).
+    net = victim.net
+    xn = victim.norm(images.permute(0, 3, 1, 2)).contiguous(memory_format=torch.channels_last)
+    for name, stem, inp in (("standard", lambda t: net.bn1(net.conv1(t)), xn),
+                            ("blocked", lambda t: s2d_stem(t, net.conv1, net.bn1),
+                             space_to_depth_nchw(xn))):
+        inp = inp.detach().requires_grad_(True)
+        co = torch.randn(stem(inp).shape, generator=g, device=dev)
+        ms = _time_ms(lambda: torch.autograd.grad((stem(inp) * co).sum(), inp), iters=20)
+        print(f"blocked phase: the stem alone {name} at b{n} (input {tuple(inp.shape)}): "
+              f"forward and input gradient {ms:.3f} ms")
+
+    walls = {}
+    for blocked in (False, True):
+        name = "blocked" if blocked else "standard"
+        model_, state, xs = layout(blocked)
+        labels = core.predict_labels(model_, xs)
+        step = core.make_train_step(model_, cfg, "both")
+        step(state, xs, labels, idx, mask)  # warm-up
+        scan = core.make_train_scan(model_, cfg, "both", n_steps=n_steps)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        losses, _ = scan(state, xs, labels, idx, mask)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) / n_steps
+        launches = fused_adamw_project.launches
+        print(f"blocked phase: gd step {name} on {model} (S2D stem) at b{n} K={k} {size}x{size}: "
+              f"{walls[name] * 1e3:.2f} ms/step over {n_steps} chained steps, "
+              f"fused_adamw_project launches {launches}, loss {float(losses[0]):.4f} -> "
+              f"{float(losses[-1]):.4f}")
+        if launches != 2 * n_steps or not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"blocked phase {name}: {launches} launches or a bad loss")
+        adamw += launches
+        print_device_breakdown(f"train step {name}", lambda: step(state, xs, labels, idx, mask),
+                               walls[name])
+    print(f"blocked phase: gd step blocked/standard {walls['blocked'] / walls['standard']:.3f}")
+    def three_steps(blocked: bool):
+        model_, state, xs = layout(blocked)
+        step = core.make_train_step(model_, cfg, "both")
+        labels = core.predict_labels(model_, xs)
+        loss = [float(step(state, xs, labels, idx, mask)[0]) for _ in range(3)]
+        d = depth_to_space(core.d_image(state.d, b_shape)) if blocked else state.d
+        return d.reshape(k, -1), state.v, loss
+
+    spread = three_steps(False)[0]
+    with _deterministic_cudnn():
+        runs = {blocked: three_steps(blocked) for blocked in (False, True)}
+    spread = float((spread - runs[False][0]).norm() / (runs[False][0] - state0.d).norm())
+    print(f"blocked phase: 3 gd steps, losses standard {runs[False][2]} blocked {runs[True][2]}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs[True][2], runs[False][2]))
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"blocked phase: the layouts' losses part: {loss_err}")
+    _layouts_close("gd steps blocked against standard, D", runs[True][0], runs[False][0],
+                   state0.d, spread)
+    _layouts_close("gd steps blocked against standard, v", runs[True][1], runs[False][1],
+                   state0.v)
+
+    with tempfile.TemporaryDirectory() as root:
+        cache = ArtifactCache(root)
+        _save_dictionary(dev, cache, victim.name, size, k)
+        served = {}
+        for blocked in ("auto", False, "again"):
+            attack = ADIL(victim, eps=EPS, n_atoms=k, loss="logits", steps_inference=30,
+                          cache=cache, blocked=blocked != "again" and blocked)
+            if blocked == "again":  # the standard layout once more, for its spread
+                served[blocked] = attack(images, None)
+                continue
+            attack(images, None)  # warm-up
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            served[blocked] = attack(images, None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fused_perturb.launches
+            via = "through the twin" if blocked else "standard"
+            print(f"blocked phase: supervised DDrague b{n} {via}: wall {wall:.3f} s, "
+                  f"fused_perturb launches {launches}")
+            if launches != 1:
+                raise AssertionError(f"blocked phase serving: {launches} launches")
+            perturb += launches
+        spread = float((served["again"] - served[False]).norm()
+                       / (served[False] - images).norm())
+        _layouts_close("DDrague through the twin against standard", served["auto"],
+                       served[False], images, spread)
+
+    rs = np.random.default_rng(2)
+    data = (rs.random((n_learn,) + shape, dtype=np.float32), np.zeros((n_learn,), np.int64))
+    learned, walls = {}, {True: [], False: []}
+    with _deterministic_cudnn():
+        for pipeline in (False, True, True, False):  # in turns, for the walls
+            with tempfile.TemporaryDirectory() as root:
+                torch.cuda.synchronize()
+                _zero_counts()
+                t0 = time.perf_counter()
+                attack = ADIL(victim, eps=EPS, n_atoms=k, batch_size=n, loss="logits", steps=2,
+                              data_train=data, cache=ArtifactCache(root), seed=0,
+                              pipeline_epochs=pipeline)
+                torch.cuda.synchronize()
+                walls[pipeline].append(time.perf_counter() - t0)
+                launches = fused_adamw_project.launches
+                v = ArtifactCache(root).load("ImageNet", model=victim.name)["v"]
+            print(f"blocked phase: ADIL learning pipeline_epochs={pipeline} (trained blocked: "
+                  f"{attack.trained_blocked}), {n_learn} images b{n} 2 epochs: wall "
+                  f"{walls[pipeline][-1]:.3f} s (the label pass included), "
+                  f"fused_adamw_project launches {launches}")
+            want = 2 * 2 * -(-n_learn // n)
+            if launches != want or not attack.trained_blocked:
+                raise AssertionError(f"blocked phase learning: {launches} launches (the path "
+                                     f"makes {want}), blocked {attack.trained_blocked}")
+            adamw += launches
+            learned.setdefault(pipeline, (attack.dictionary, torch.as_tensor(v),
+                                          attack.history["loss"]))
+    err = max(float((learned[True][0] - learned[False][0]).abs().max()),
+              float((learned[True][1] - learned[False][1]).abs().max()))
+    print(f"blocked phase: pipelined against serial: D and v max_abs_err {err:.3e} (tol 1e-5), "
+          f"losses {learned[True][2]} / {learned[False][2]}; mean walls {np.mean(walls[True]):.3f}"
+          f" / {np.mean(walls[False]):.3f} s")
+    if not err <= 1e-5:
+        raise AssertionError(f"blocked phase: the pipelined epochs part from the serial: {err}")
+
+    auto_initialize(device=dev)
+    mesh = data_mesh()
+    with tempfile.TemporaryDirectory() as root, _deterministic_cudnn():
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        attack = ADIL(victim, eps=EPS, n_atoms=k, batch_size=n, loss="logits", steps=2,
+                      data_train=data, cache=ArtifactCache(root), mesh=mesh, seed=0,
+                      blocked=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_adamw_project.launches
+        v = torch.as_tensor(ArtifactCache(root).load("ImageNet", model=victim.name)["v"],
+                            device=dev)
+        state = _replay(dev, twin, space_to_depth(torch.as_tensor(data[0])), attack.cfg, mesh,
+                        1, 2)
+    err = max(float((attack.dictionary - depth_to_space(core.d_image(state.d, b_shape)))
+                    .abs().max()), float((v - state.v[:n_learn]).abs().max()))
+    print(f"blocked phase: ADIL(mesh=data_mesh(), blocked=True) at world size 1: wall {wall:.2f} s, "
+          f"blocked {attack.trained_blocked}, fused_adamw_project launches {launches}; against "
+          f"the serial replay on the twin: D and v max_abs_err {err:.3e} (tol 1e-5)")
+    if not (err <= 1e-5 and attack.trained_blocked and launches == 2 * 2 * -(-n_learn // n)):
+        raise AssertionError(f"blocked phase dp: {err}, {launches} launches")
+    adamw += launches
+    return perturb, adamw
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2068,6 +2686,21 @@ def main() -> None:
     kernels[0]["adilr"], kernels[1]["adilr"] = perturb_row, adamw_row
     for row, extra in zip(kernels, (perturb_row, adamw_row)):
         row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])
+    perturb_rows, adamw_row = timed("kernels at the new shapes", check_kernels_at_new_shapes, dev)
+    kernels[0].update(perturb_rows)
+    kernels[1].update(adamw_row)
+    for row, extra in ((kernels[0], perturb_rows["n128"]), (kernels[0], perturb_rows["blocked"]),
+                       (kernels[1], adamw_row["blocked"])):
+        row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])
+    with tempfile.TemporaryDirectory() as root:
+        perturb, blob, dicts, weights = timed("generate", generate_phase, dev, root)
+        kernels[0]["launches"] += perturb
+        kernels[0]["launches"] += timed("import", import_phase, dev, root)
+        timed("s2d stems", check_s2d_stems, dev)
+        perturb, adamw = timed("blocked", blocked_phase, dev)
+        kernels[0]["launches"] += perturb
+        kernels[1]["launches"] += adamw
+        timed("trace", trace_phase, dev, root, blob, dicts, weights)
     from dl_attack_on_imagenet_tpu_torch.parallel.dist import shutdown
 
     shutdown()

@@ -11,14 +11,29 @@ sampling, learning first where no dictionary exists) and
 ``forward_supervised_adamw``, each in fp32 or in the bf16 mixed precision
 of ``perturb_dtype="bfloat16"`` (``adil_core``).
 
-Not ported yet, and refused with ``NotImplementedError``: ``blocked=True``
-and ``pipeline_epochs=True``. Both take their defaults and ``False``, and
-train on the standard serial loop, whose trajectory the JAX package's own
-tests prove equal to theirs.
+``blocked`` ("auto", True or False): where the victim has a space-to-depth
+stem (``models.blocked_twin``) and the images have an even size, the
+resident ``gd`` path trains in the stem's layout (images space-to-depth'd,
+D's columns permuted to match) and the supervised solvers serve through the
+twin on a cached blocked copy of D. Every step, clamp, projection, Gram
+matrix and squared norm is elementwise in D's columns or invariant under
+their permutation, so the trajectory is the standard one under a fixed
+column permutation. Artifacts always hold the presentation ``(K, H, W, C)``
+dictionary; ``trained_blocked`` says whether the last run trained blocked.
+The streamed, folder and ``alter`` paths train unblocked.
+
+``pipeline_epochs`` ("auto", True or False): the resident ``gd`` loop
+enqueues epoch t+1 before the host reads epoch t's sums (the epoch's one
+sync), on a device snapshot of epoch t's state, so that the convergence
+stop, the validation and the checkpoint of epoch t see exactly the serial
+state. "auto" takes it where 3x the images and 3x the state fit in 60% of
+the device's memory.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -26,15 +41,52 @@ import torch
 import torch.distributed as dist
 
 from ..data import as_array_dataset, prefetch_to_device
-from ..models import VictimModel
+from ..models import VictimModel, blocked_twin, depth_to_space, space_to_depth
 from ..utils import ArtifactCache, MetricLogger, StepTimer, annotate
 from . import adil_core as core
 from .adil_core import AdilConfig
 from .base import Attack
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+def _device_memory_budget(device: torch.device) -> int:
+    """Bytes of memory on ``device``, for ``pipeline_epochs="auto"``: the
+    card's total, and the JAX package's 64 GiB stand-in on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[1]
+    return 64 << 30
+
+
+def _copy_state(state: core.TrainState) -> core.TrainState:
+    """A device copy of ``state`` (the pipelined loop's snapshot)."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+def _copy_generator(generator: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=generator.device)
+    out.set_state(generator.get_state())
+    return out
+
+
+def _read_later(sums):
+    """Start the copy of an epoch's (loss, fooling) sums to the host now,
+    and return a function that waits for it and gives them as floats: on
+    the card it waits for that epoch only, not for the work enqueued
+    after it."""
+    s = torch.stack(sums)
+    if not s.is_cuda:
+        return s.tolist
+    host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+    host.copy_(s, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def read():
+        done.synchronize()
+        return host.tolist()
+
+    return read
 
 
 def val_fooled(victim, d: torch.Tensor, data_val, cfg: AdilConfig, device,
@@ -113,10 +165,6 @@ class ADIL(Attack):
         pipeline_epochs: Any = "auto",
     ):
         super().__init__(victim, "ADIL", targeted)
-        if blocked not in ("auto", False):
-            raise _not_ported("blocked=True (the space-to-depth layout)", "12")
-        if pipeline_epochs not in ("auto", False):
-            raise _not_ported("pipeline_epochs=True", "12")
         if method not in ("gd", "alter"):
             raise ValueError(f"method must be 'gd' or 'alter', got {method!r}")
         self.cfg = AdilConfig(
@@ -146,6 +194,11 @@ class ADIL(Attack):
         self.stream = stream
         self.checkpoint_every = checkpoint_every
         self.resume = resume
+        self.blocked = blocked
+        self.pipeline_epochs = pipeline_epochs
+        self.trained_blocked = False  # whether the last training run was blocked
+        self._train_blocked = False  # whether the run in progress is
+        self._blocked_d_cache = None
         self.metrics = MetricLogger(metrics_log)
         self.dictionary: Optional[torch.Tensor] = None
         self.history: dict = {}
@@ -228,25 +281,60 @@ class ADIL(Attack):
         return core.init_state(generator, image_shape, n, self.cfg, mode=mode,
                                d_init=self._load_warm_start())
 
-    def _prepare(self, data_train, mode: str):
+    def _blocked_victim(self, image_shape) -> Optional[VictimModel]:
+        """The victim's blocked twin where ``blocked`` allows it, the victim
+        has an S2D stem and the images an even size; else None."""
+        if not self.blocked or image_shape[0] % 2 or image_shape[1] % 2:
+            return None
+        return blocked_twin(self.victim)
+
+    def _set_blocked(self, on: bool) -> None:
+        self._train_blocked = self.trained_blocked = on
+
+    def _prepare(self, data_train, mode: str, twin: Optional[VictimModel] = None):
         """Dataset, its images and clean labels on the device, generator and
-        fresh state for a resident training run. In bf16 mode a ``gd`` run
-        holds the images in bf16, after its labels are taken from fp32: the
-        step casts x to bf16 anyway, and the epoch's gather moves half the
-        bytes."""
+        fresh state for a resident training run. With a blocked ``twin`` the
+        images and D are space-to-depth'd and the labels are the twin's. In
+        bf16 mode a ``gd`` run holds the images in bf16, after its labels
+        are taken from fp32: the step casts x to bf16 anyway, and the
+        epoch's gather moves half the bytes."""
         ds = as_array_dataset(data_train)
         images = torch.as_tensor(ds.images, dtype=torch.float32, device=self.device).contiguous()
         generator = self._generator()
         state = self._init(ds.image_shape, len(ds), generator, mode)
-        labels = core.predict_labels(self.victim, images)
+        if twin is not None:
+            images = space_to_depth(images)
+            state.d = space_to_depth(core.d_image(state.d, ds.image_shape)).reshape(state.d.shape)
+        labels = core.predict_labels(twin or self.victim, images)
         if mode == "gd" and self.cfg.compute_dtype is not None:
             images = images.to(self.cfg.compute_dtype)
         return ds, images, labels, generator, state
 
     def _val_fooling(self, d: torch.Tensor, data_val) -> float:
-        """The share of the val set that fresh codes on D fool (:func:`val_fooled`)."""
-        return float(val_fooled(self.victim, d, data_val, self.cfg, self.device)) / len(
-            as_array_dataset(data_val))
+        """The share of the val set that fresh codes on the training D fool
+        (:func:`val_fooled`, on the presentation dictionary)."""
+        ds = as_array_dataset(data_val)
+        d = self._present_d(d, ds.image_shape)
+        return float(val_fooled(self.victim, d, ds, self.cfg, self.device)) / len(ds)
+
+    def _present_d(self, d_flat: torch.Tensor, image_shape) -> torch.Tensor:
+        """The training D in its presentation shape (K, H, W, C), its
+        columns put back in pixel order where this run trains blocked."""
+        if self._train_blocked:
+            h, w, c = image_shape
+            return depth_to_space(core.d_image(d_flat, (h // 2, w // 2, 4 * c)))
+        return core.d_image(d_flat, image_shape)
+
+    def _resolve_pipeline(self, images: torch.Tensor, state: core.TrainState) -> bool:
+        """``pipeline_epochs``, with "auto" resolved against the device's
+        memory: the pipelined loop holds a second presliced epoch and a
+        snapshot of the state."""
+        if self.pipeline_epochs != "auto":
+            return bool(self.pipeline_epochs)
+        img_bytes = images.numel() * images.element_size()
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in vars(state).values() if isinstance(t, torch.Tensor))
+        return 3 * img_bytes + 3 * state_bytes < 0.6 * _device_memory_budget(images.device)
 
     def _end_epoch(self, t: int, tag: str, state, generator, sums, n: int,
                    history: dict, data_val) -> bool:
@@ -282,20 +370,60 @@ class ADIL(Attack):
 
     def _learn_gd(self, data_train, data_val) -> None:
         """Joint projected AdamW over (D, v), the dataset resident on the
-        device: one gather per epoch into presliced batches, then the steps."""
-        ds, images, labels, generator, state = self._prepare(data_train, "gd")
+        device: one gather per epoch into presliced batches, then the steps;
+        blocked and pipelined where those apply (see the module)."""
+        twin = self._blocked_victim(as_array_dataset(data_train).image_shape)
+        self._set_blocked(twin is not None)
+        ds, images, labels, generator, state = self._prepare(data_train, "gd", twin)
         n = len(ds)
-        step = core.make_train_step(self.victim, self.cfg, "both")
+        step = core.make_train_step(twin or self.victim, self.cfg, "both")
         history = self._resume(state, generator, "gd")
         timer = StepTimer(warmup=1)
-        for t in range(state.epoch, self.cfg.steps):
-            with timer.step(), annotate("adil/epoch"):
+
+        def epoch():
+            with annotate("adil/epoch"):
                 batches = core.make_batches(generator, n, self.cfg.batch_size)
-                sums = torch.stack(core.run_epoch(step, state, *core.preslice_epoch(
-                    images, labels, batches))).tolist()  # the epoch's one host read
-            if self._end_epoch(t, "gd", state, generator, sums, n, history, data_val):
-                break
+                return core.run_epoch(step, state, *core.preslice_epoch(images, labels, batches))
+
+        if self._resolve_pipeline(images, state):
+            state = self._pipelined(epoch, state, generator, n, history, data_val, timer)
+        else:
+            for t in range(state.epoch, self.cfg.steps):
+                with timer.step():
+                    sums = torch.stack(epoch()).tolist()  # the epoch's one host read
+                if self._end_epoch(t, "gd", state, generator, sums, n, history, data_val):
+                    break
         self._finish(state, ds.image_shape, history, timer)
+        self._train_blocked = False
+
+    def _pipelined(self, epoch, state, generator, n: int, history: dict, data_val,
+                   timer: StepTimer) -> core.TrainState:
+        """The epochs of :meth:`_learn_gd` with epoch t+1 enqueued before
+        epoch t's sums are read: epoch t's bookkeeping runs on a snapshot of
+        its state and generator, taken before epoch t+1 updates them. Returns
+        the final state: the snapshot where the convergence rule stops at
+        epoch t, as the serial loop would."""
+        pending = None  # (t, read its sums, generator after its draw)
+        mark = time.perf_counter()
+        for t in range(state.epoch, self.cfg.steps):
+            snap = _copy_state(state) if pending is not None else None
+            read = _read_later(epoch())
+            drawn = _copy_generator(generator)
+            if pending is not None:
+                t_prev, read_prev, gen_prev = pending
+                stop = self._end_epoch(t_prev, "gd", snap, gen_prev, read_prev(), n,
+                                       history, data_val)
+                now = time.perf_counter()
+                timer.record(now - mark)
+                mark = now
+                if stop:
+                    return snap
+            pending = (t, read, drawn)
+        if pending is not None:
+            t_prev, read_prev, gen_prev = pending
+            self._end_epoch(t_prev, "gd", state, gen_prev, read_prev(), n, history, data_val)
+            timer.record(time.perf_counter() - mark)
+        return state
 
     def _host_batches(self, ds, labels_host: np.ndarray, seed: int):
         """Shuffled host batches (x, labels, idx, mask), the ragged last one
@@ -313,7 +441,8 @@ class ADIL(Attack):
     def _learn_gd_streamed(self, data_train, data_val) -> None:
         """Joint projected AdamW with the images on the host: batches flow to
         the device through the prefetching pipeline, for datasets larger
-        than the device holds. Same update as :meth:`_learn_gd`."""
+        than the device holds. Same update as :meth:`_learn_gd`, unblocked."""
+        self._set_blocked(False)
         ds = as_array_dataset(data_train)
         n = len(ds)
         generator = self._generator()
@@ -346,9 +475,10 @@ class ADIL(Attack):
         decodes, resizes and crops on its threads, batches flow to the device
         through the prefetching pipeline, and the loader's row indices
         address v. Padding slots (label -1) and files that failed to decode
-        (label -2) are masked out. Same update as :meth:`_learn_gd`."""
+        (label -2) are masked out. Same update as :meth:`_learn_gd`, unblocked."""
         from ..runtime import HostLoader
 
+        self._set_blocked(False)
         paths = [p for p, _ in folder.samples]
         n = len(paths)
         size = folder.image_size
@@ -395,7 +525,8 @@ class ADIL(Attack):
         """Alternating rounds: ``steps_inner`` epochs on v with D frozen, then
         ``steps_inner`` on D with v frozen. ``state.epoch`` counts rounds.
         The loss tracked is the last D epoch's normalized sum, as in the JAX
-        package."""
+        package. Always unblocked."""
+        self._set_blocked(False)
         ds, images, labels, generator, state = self._prepare(data_train, "alter")
         n = len(ds)
         step_v = core.make_train_step(self.victim, self.cfg, "v")
@@ -427,21 +558,27 @@ class ADIL(Attack):
             data_val=as_array_dataset(data_val) if data_val is not None else None,
             val_every=self.val_every or 0, d_init=self._load_warm_start(),
             checkpoint_every=self.checkpoint_every or 0, cache=self.cache,
-            ckpt_key=self._train_ckpt_key(distributed=True), resume=self.resume)
+            ckpt_key=self._train_ckpt_key(distributed=True), resume=self.resume,
+            blocked=self.blocked)
+        self.trained_blocked = bool(history["blocked"])
         self.timing = history.pop("timing")
         self._save(d, v, history)
 
     def _finish(self, state, image_shape, history: dict, timer: StepTimer) -> None:
         self.timing = timer.summary()
-        self._save(core.d_image(state.d, image_shape), state.v, history)
+        self._save(self._present_d(state.d, image_shape), state.v, history)
         if self.checkpoint_every:
             self._clear_train_state()
 
     # -- mid-training checkpoint: the port's own kind, so that a JAX
-    # -- train-state checkpoint in a shared cache is never resumed here.
+    # -- train-state checkpoint in a shared cache is never resumed here. A
+    # -- blocked run's D and moments are column-permuted: its kind is its own.
 
     def _train_ckpt_key(self, distributed: bool = False) -> dict:
-        kind = "dp_train_state_torch" if distributed else "train_state_torch"
+        if distributed:
+            kind = "dp_train_state_torch"
+        else:
+            kind = "train_state_s2d_torch" if self._train_blocked else "train_state_torch"
         return dict(model=self.model_name, kind=kind)
 
     def _save_train_state(self, state: core.TrainState, generator: torch.Generator,
@@ -504,6 +641,26 @@ class ADIL(Attack):
     def _images(self, images) -> torch.Tensor:
         return torch.as_tensor(images, dtype=torch.float32, device=self.device).contiguous()
 
+    def _blocked_dict(self, d: torch.Tensor) -> torch.Tensor:
+        """The blocked copy of the (fixed) dictionary, cached per D."""
+        cached = self._blocked_d_cache
+        if cached is None or cached[0] is not d:
+            cached = self._blocked_d_cache = (d, space_to_depth(d))
+        return cached[1]
+
+    def _blocked_supervised(self, solver, d: torch.Tensor, images: torch.Tensor):
+        """``solver`` (a supervised solver of ``adil_core``) run through the
+        blocked twin, or None where the twin does not apply. The Gram matrix
+        and so D's pseudo-inverse, every clamp and every squared norm are
+        invariant under the column permutation, so this is the standard
+        solve in another layout. Unsupervised sampling stays standard: it
+        takes no input gradient."""
+        twin = self._blocked_victim(tuple(images.shape[1:]))
+        if twin is None:
+            return None
+        return depth_to_space(solver(twin, self._blocked_dict(d), space_to_depth(images),
+                                     self.cfg))
+
     def forward(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Attack a batch with the memoized dictionary, by ``attack`` mode;
         where there is none yet, learn one on this batch first."""
@@ -513,6 +670,9 @@ class ADIL(Attack):
         d = self._load_dictionary()
         images = self._images(images)
         if self.attack_mode == "supervised":
+            adv = self._blocked_supervised(core.supervised_ddrague, d, images)
+            if adv is not None:
+                return adv
             return core.supervised_ddrague(self.victim, d, images, self.cfg)
         self._rng_calls += 1
         generator = torch.Generator(device=images.device)
@@ -522,4 +682,8 @@ class ADIL(Attack):
     def forward_supervised_adamw(self, images: torch.Tensor) -> torch.Tensor:
         """The alternative supervised solver: AdamW on the codes."""
         d = self._load_dictionary()
-        return core.supervised_adamw_codes(self.victim, d, self._images(images), self.cfg)
+        images = self._images(images)
+        adv = self._blocked_supervised(core.supervised_adamw_codes, d, images)
+        if adv is not None:
+            return adv
+        return core.supervised_adamw_codes(self.victim, d, images, self.cfg)

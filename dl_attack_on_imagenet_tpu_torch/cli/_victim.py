@@ -3,10 +3,11 @@
 Port of ``dl_attack_on_imagenet_tpu/cli/_victim.py``. The victim is built
 unfolded, ``--weights`` (a ``torch.save``d torchvision ``state_dict``) is
 loaded into it, and then, with ``--fast-victim``, its BatchNorms are folded
-(exact for eval-mode victims, ``models/fold.py``). ``--fast-victim``'s
-``stem_s2d`` is a TPU layout of the same stem that the port does not build
-(ROADMAP.md queue 1 item 12): it is dropped with a printed line.
-``--device`` picks the card or the CPU; it defaults to ``cuda``.
+(exact for eval-mode victims, ``models/fold.py``). ``--fast-victim`` also
+builds the space-to-depth stem where ``models.fast_victim_kwargs`` names it
+(the ResNets, DenseNet, GoogLeNet): the same parameters, so ``--weights``
+loads into it unchanged. ``--device`` picks the card or the CPU; it
+defaults to ``cuda``.
 
 Precision: both CLIs run the victim's convolutions in true fp32, as every
 check of the port against the JAX package and every wall in ``PERF.md``
@@ -25,7 +26,7 @@ def add_victim_args(p) -> None:
                         "Default: random weights from --seed")
     p.add_argument("--fast-victim", action="store_true",
                    help="build the victim with its exact-math fast knobs "
-                        "(models.fast_victim_kwargs; the port applies fold_bn)")
+                        "(models.fast_victim_kwargs: stem_s2d, fold_bn)")
     p.add_argument("--device", default="cuda",
                    help="device to run on: cuda (default; raises without one) or cpu")
 
@@ -51,10 +52,8 @@ def build_victim(args):
     knobs = fast_victim_kwargs(args.model) if args.fast_victim else {}
     if args.fast_victim and not knobs:
         print(f"warning: --fast-victim has no knobs for '{args.model}'; ignored")
-    if knobs.pop("stem_s2d", False):
-        print("note: --fast-victim's stem_s2d is a TPU layout of the same stem and is not "
-              "ported (ROADMAP.md queue 1 item 12); the plain stem is built")
     victim = create_model(args.model, seed=args.seed, device=args.device,
+                          stem_s2d=knobs.get("stem_s2d", False),
                           input_size=blanket_input_size(args.model,
                                                         getattr(args, "input_size", None)))
     if args.weights:

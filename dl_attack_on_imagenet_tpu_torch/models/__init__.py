@@ -5,7 +5,9 @@ registry: the ResNets, DenseNet, GoogLeNet, Inception-v3, MobileNetV2, VGG,
 ViT and the tiny test CNN. A name picks a classifier, the ImageNet
 normalization is prepended, and the result is a frozen function from [0, 1]
 NHWC images to logits: eval mode, no weight gradients, weights in
-``channels_last``.
+``channels_last``. The ResNets, DenseNet and GoogLeNet take ``stem_s2d``
+(their stem on 2x2 space-to-depth blocks); :func:`blocked_twin` gives such a
+victim's twin over the blocked images themselves.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from .densenet import densenet121, densenet169
 from .fold import fold_batchnorms_, foldable
 from .googlenet import googlenet
 from .inception import inception_v3
-from .layers import IMAGENET_MEAN, IMAGENET_STD, Normalize
+from .layers import IMAGENET_MEAN, IMAGENET_STD, Normalize, depth_to_space, space_to_depth
 from .mobilenet import mobilenet_v2
 from .resnet import resnet18, resnet34, resnet50
 from .tiny import tiny_cnn
@@ -71,9 +73,7 @@ def fast_victim_kwargs(name: str) -> dict:
     """Each architecture's exact-math fast knobs, the JAX package's mapping:
     ResNets and GoogLeNet take ``stem_s2d`` and ``fold_bn``, DenseNet
     ``stem_s2d``, Inception and MobileNet ``fold_bn``, the rest nothing.
-    The port builds ``fold_bn``; ``stem_s2d`` is a TPU layout of the same
-    stem (ROADMAP.md queue 1 item 12) that ``cli._victim`` drops with a
-    printed line."""
+    ``cli._victim`` builds the stem and folds after the weights load."""
     key = name.lower()
     if "resnet" in key or "googlenet" in key:
         return dict(stem_s2d=True, fold_bn=True)
@@ -93,16 +93,22 @@ class VictimModel(nn.Module):
     mixed-precision forwards) is normalized in bf16 and then cast to fp32
     for the net, whose layers stay fp32: the JAX wrapper normalizes in the
     input's dtype and Flax's fp32 layers promote the result.
+
+    ``blocked_input=True`` makes the victim of the 2x2 space-to-depth
+    images ``(N, S/2, S/2, 12)`` (``layers.space_to_depth``) of a net with
+    an S2D stem; the normalization tiles over the 12 channels.
     """
 
     def __init__(self, name: str, net: nn.Module, input_size: int,
                  normalize: bool = True, mean: Sequence[float] = IMAGENET_MEAN,
-                 std: Sequence[float] = IMAGENET_STD):
+                 std: Sequence[float] = IMAGENET_STD, blocked_input: bool = False):
         super().__init__()
         self.name = name
         self.net = net
         self.input_size = input_size
         self.num_classes = net.num_classes
+        self.mean, self.std = tuple(mean), tuple(std)
+        self.blocked_input = blocked_input
         self.norm = Normalize(mean, std) if normalize else None
 
     @property
@@ -113,6 +119,8 @@ class VictimModel(nn.Module):
         x = x.permute(0, 3, 1, 2)
         if self.norm is not None:
             x = self.norm(x)
+        if self.blocked_input:
+            return self.net(x.float(), blocked_input=True)
         return self.net(x.float())
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
@@ -158,6 +166,8 @@ def create_model(
     seed: int = 0,
     device: DeviceLike = None,
     fold_bn: bool = False,
+    stem_s2d: bool = False,
+    blocked_input: bool = False,
     **model_kwargs,
 ) -> VictimModel:
     """Build a frozen victim by registry name.
@@ -170,6 +180,10 @@ def create_model(
     set (``models.fold``, which also folds a built victim). VGG and ViT are
     built for their input size; ``model_kwargs`` go to the constructor
     (``hidden`` for VGG, ``transform_input`` for GoogLeNet and Inception).
+    ``stem_s2d=True`` builds a ResNet, DenseNet or GoogLeNet with the S2D
+    stem (the same parameters); ``blocked_input=True`` builds it as the
+    victim of blocked images (see :class:`VictimModel`). Other families
+    refuse both with a ``TypeError``, as the JAX package's do.
     """
     key = name.lower()
     if key not in MODEL_REGISTRY:
@@ -183,6 +197,8 @@ def create_model(
         num_classes, normalize = min(num_classes, 10), False
     if "input_size" in inspect.signature(ctor).parameters:
         model_kwargs["input_size"] = size
+    if stem_s2d or blocked_input:
+        model_kwargs["stem_s2d"] = True
     with torch.device(dev):
         net = ctor(num_classes=num_classes, **model_kwargs)
     if state_dict is None:
@@ -200,14 +216,37 @@ def create_model(
     if fold_bn:
         fold_batchnorms_(net)
     net = net.to(memory_format=torch.channels_last)
-    victim = VictimModel(key, net, size, normalize, mean, std)
+    victim = VictimModel(key, net, size, normalize, mean, std, blocked_input)
     victim.to(dev)
     victim.eval()
     victim.requires_grad_(False)
     return victim
 
 
-__all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size", "create_model",
-           "densenet121", "densenet169", "fast_victim_kwargs", "googlenet", "inception_v3",
-           "mobilenet_v2", "resnet18", "resnet34", "resnet50", "tiny_cnn", "vgg11", "vgg16",
-           "vgg19", "vit_b16", "vit_tiny"]
+def blocked_twin(victim: VictimModel) -> Optional[VictimModel]:
+    """The victim of the space-to-depth images of ``victim``'s images: the
+    same net (the same parameters, folded or not) and the same normalization,
+    with GoogLeNet's ``transform_input`` kept inside the net; None where the
+    victim's net has no S2D stem, as in the JAX package, whose plain stem
+    keeps its parameters elsewhere. Memoized on the victim (outside its
+    submodules, so that its ``state_dict`` does not change)."""
+    if victim.blocked_input:
+        return victim
+    if not getattr(victim.net, "stem_s2d", False):
+        return None
+    twin = victim.__dict__.get("_blocked_twin")
+    if twin is None:
+        twin = VictimModel(victim.name, victim.net, victim.input_size,
+                           victim.norm is not None, victim.mean, victim.std,
+                           blocked_input=True)
+        twin.to(victim.device)
+        twin.eval()
+        twin.requires_grad_(False)
+        victim.__dict__["_blocked_twin"] = twin
+    return twin
+
+
+__all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size", "blocked_twin",
+           "create_model", "densenet121", "densenet169", "depth_to_space", "fast_victim_kwargs",
+           "googlenet", "inception_v3", "mobilenet_v2", "resnet18", "resnet34", "resnet50",
+           "space_to_depth", "tiny_cnn", "vgg11", "vgg16", "vgg19", "vit_b16", "vit_tiny"]

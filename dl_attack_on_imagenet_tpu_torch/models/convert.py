@@ -8,7 +8,11 @@ names: Flax numbers submodules ``Class_N`` in call order within each parent,
 so ``Bottleneck_7`` is the eighth block whatever order the dict keys come
 in. Convolution kernels go HWIO -> OIHW and dense kernels are transposed;
 ViT's per-head query, key and value kernels are packed into
-``in_proj_weight``.
+``in_proj_weight``. A space-to-depth stem (``S2DStem_0``, the JAX package's
+``stem_s2d`` or ``blocked_input`` build) keeps the plain (7, 7, 3, F)
+kernel and its BatchNorm, which map onto the stem's torchvision names
+unchanged: the result loads into the port's build with or without
+``stem_s2d``.
 
 ``load_torch_checkpoint`` loads a torchvision ``state_dict`` saved with
 ``torch.save`` into a port victim, less the auxiliary heads that the
@@ -83,11 +87,21 @@ def _basic_convs(out: Dict, prefix: str, names, params: Dict, stats: Dict) -> No
                  params[f"ConvBN_{j}"], stats[f"ConvBN_{j}"])
 
 
+def _s2d_stem(out: Dict, conv: str, bn: str, params: Dict, stats: Dict) -> bool:
+    """The ``S2DStem_0`` of ``params``, where there is one, into the plain
+    stem's ``conv`` and ``bn``; returns whether there was one."""
+    if "S2DStem_0" not in params:
+        return False
+    p = params["S2DStem_0"]
+    _conv_bn(out, conv, bn, {"Conv_0": {"kernel": p["kernel"]}, **p},
+             stats.get("S2DStem_0", {}))
+    return True
+
+
 def _resnet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
-    if "ConvBN_0" not in params:
-        raise ValueError("space-to-depth stems are not ported yet")
     out: Dict[str, torch.Tensor] = {}
-    _conv_bn(out, "conv1", "bn1", params["ConvBN_0"], stats["ConvBN_0"])
+    if not _s2d_stem(out, "conv1", "bn1", params, stats):
+        _conv_bn(out, "conv1", "bn1", params["ConvBN_0"], stats["ConvBN_0"])
     cls = "Bottleneck" if _numbered(params, "Bottleneck") else "BasicBlock"
     n_convs = 3 if cls == "Bottleneck" else 2
     seen: Dict[int, int] = {}
@@ -112,8 +126,13 @@ def _resnet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
 
 def _densenet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
-    _conv(out, "features.conv0", params["Conv_0"])
-    _bn(out, "features.norm0", params["BatchNorm_0"], stats["BatchNorm_0"])
+    # With an S2D stem the stem's BatchNorm is inside it, and the last one is
+    # BatchNorm_0 rather than BatchNorm_1.
+    final = "BatchNorm_0"
+    if not _s2d_stem(out, "features.conv0", "features.norm0", params, stats):
+        _conv(out, "features.conv0", params["Conv_0"])
+        _bn(out, "features.norm0", params["BatchNorm_0"], stats["BatchNorm_0"])
+        final = "BatchNorm_1"
     block, layer, prev = 0, 0, None
     for key in _numbered(params, "DenseLayer"):
         p, s = params[key], stats[key]
@@ -133,7 +152,7 @@ def _densenet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
         _bn(out, f"features.transition{t + 1}.norm", params[key]["BatchNorm_0"],
             stats[key]["BatchNorm_0"])
         _conv(out, f"features.transition{t + 1}.conv", params[key]["Conv_0"])
-    _bn(out, "features.norm5", params["BatchNorm_1"], stats["BatchNorm_1"])
+    _bn(out, "features.norm5", params[final], stats[final])
     _dense(out, "classifier", params["Dense_0"])
     return out
 
@@ -163,7 +182,10 @@ _GOOGLENET_BRANCHES = ("branch1", "branch2.0", "branch2.1", "branch3.0", "branch
 
 def _googlenet(params: Dict, stats: Dict) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
-    _basic_convs(out, "", ("conv1", "conv2", "conv3"), params, stats)
+    if _s2d_stem(out, "conv1.conv", "conv1.bn", params, stats):
+        _basic_convs(out, "", ("conv2", "conv3"), params, stats)
+    else:
+        _basic_convs(out, "", ("conv1", "conv2", "conv3"), params, stats)
     for i, name in enumerate(_GOOGLENET_BLOCKS):
         key = f"InceptionBlock_{i}"
         _basic_convs(out, f"inception{name}.", _GOOGLENET_BRANCHES, params[key], stats[key])

@@ -1,7 +1,9 @@
 """DenseNet family (121/169) as torchvision-shaped modules.
 
-Port of ``dl_attack_on_imagenet_tpu/models/densenet.py`` without its TPU
-stem layouts (``stem_s2d``, ``blocked_input``). Each dense layer is
+Port of ``dl_attack_on_imagenet_tpu/models/densenet.py``. ``stem_s2d`` and
+``forward(x, blocked_input=True)`` run the 7x7/s2 stem on 2x2 space-to-depth
+blocks, as the ResNets do (``resnet.s2d_stem``), on the same ``conv0``
+kernel, with the stem's ReLU after its max pool. Each dense layer is
 pre-activation, BN -> ReLU -> 1x1 conv -> BN -> ReLU -> 3x3 conv, and
 concatenates its output to its input; a transition is BN -> ReLU -> 1x1
 conv -> 2x2 average pool. The names are torchvision's
@@ -18,6 +20,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .resnet import s2d_stem, stem_blocks
 
 
 class DenseLayer(nn.Module):
@@ -48,8 +52,10 @@ class DenseNet(nn.Module):
     """DenseNet over NCHW input; logits out."""
 
     def __init__(self, block_config: Sequence[int], growth_rate: int = 32,
-                 num_init_features: int = 64, num_classes: int = 1000):
+                 num_init_features: int = 64, num_classes: int = 1000,
+                 stem_s2d: bool = False):
         super().__init__()
+        self.stem_s2d = stem_s2d
         layers = OrderedDict([
             ("conv0", nn.Conv2d(3, num_init_features, 7, stride=2, padding=3, bias=False)),
             ("norm0", nn.BatchNorm2d(num_init_features)),
@@ -71,14 +77,22 @@ class DenseNet(nn.Module):
         self.classifier = nn.Linear(features, num_classes)
         self.num_classes = num_classes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.features(x))
-        return self.classifier(x.mean(dim=(2, 3)))
+    def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
+        xb = stem_blocks(x, self.stem_s2d, blocked_input)
+        if xb is None:
+            x = self.features(x)
+        else:
+            f = self.features
+            x = F.relu(f.pool0(s2d_stem(xb, f.conv0, f.norm0)))
+            for name, mod in f.named_children():
+                if name not in ("conv0", "norm0", "relu0", "pool0"):
+                    x = mod(x)
+        return self.classifier(F.relu(x).mean(dim=(2, 3)))
 
 
-def densenet121(num_classes: int = 1000) -> DenseNet:
-    return DenseNet([6, 12, 24, 16], num_classes=num_classes)
+def densenet121(num_classes: int = 1000, stem_s2d: bool = False) -> DenseNet:
+    return DenseNet([6, 12, 24, 16], num_classes=num_classes, stem_s2d=stem_s2d)
 
 
-def densenet169(num_classes: int = 1000) -> DenseNet:
-    return DenseNet([6, 12, 32, 32], num_classes=num_classes)
+def densenet169(num_classes: int = 1000, stem_s2d: bool = False) -> DenseNet:
+    return DenseNet([6, 12, 32, 32], num_classes=num_classes, stem_s2d=stem_s2d)

@@ -1,7 +1,10 @@
 """GoogLeNet (Inception v1) as a torchvision-shaped module.
 
-Port of ``dl_attack_on_imagenet_tpu/models/googlenet.py`` without its TPU
-stem layouts. As there: every conv -> BN -> ReLU is torchvision's
+Port of ``dl_attack_on_imagenet_tpu/models/googlenet.py``. ``stem_s2d`` and
+``forward(x, blocked_input=True)`` run the 7x7/s2 stem on 2x2 space-to-depth
+blocks, as the ResNets do (``resnet.s2d_stem``), on the same ``conv1``
+kernel and BatchNorm (eps 1e-3), with the stem's ReLU after its max pool;
+``transform_input`` tiles over the blocked channels. As there: every conv -> BN -> ReLU is torchvision's
 ``BasicConv2d`` with BatchNorm eps 1e-3; ``transform_input=True`` by
 default (torchvision's pretrained setting); the "5x5" branch is a 3x3, as
 torchvision's weights are shaped; the max pools are the JAX package's
@@ -20,6 +23,7 @@ import torch
 from torch import nn
 
 from .layers import BasicConv2d, MaxPool, TransformInput
+from .resnet import s2d_stem, stem_blocks
 
 _BN_EPS = 1e-3  # torchvision BasicConv2d: BatchNorm2d(out_channels, eps=0.001)
 _conv = functools.partial(BasicConv2d, eps=_BN_EPS)
@@ -41,8 +45,10 @@ class Inception(nn.Module):
 class GoogLeNet(nn.Module):
     """GoogLeNet over NCHW input; logits out."""
 
-    def __init__(self, num_classes: int = 1000, transform_input: bool = True):
+    def __init__(self, num_classes: int = 1000, transform_input: bool = True,
+                 stem_s2d: bool = False):
         super().__init__()
+        self.stem_s2d = stem_s2d
         self.transform = TransformInput() if transform_input else None
         self.conv1 = _conv(3, 64, 7, stride=2)
         self.maxpool1 = MaxPool(3, 2)
@@ -63,10 +69,14 @@ class GoogLeNet(nn.Module):
         self.fc = nn.Linear(1024, num_classes)
         self.num_classes = num_classes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
         if self.transform is not None:
             x = self.transform(x)
-        x = self.maxpool1(self.conv1(x))
+        xb = stem_blocks(x, self.stem_s2d, blocked_input)
+        if xb is None:
+            x = self.maxpool1(self.conv1(x))
+        else:
+            x = torch.relu(self.maxpool1(s2d_stem(xb, self.conv1.conv, self.conv1.bn)))
         x = self.maxpool2(self.conv3(self.conv2(x)))
         x = self.maxpool3(self.inception3b(self.inception3a(x)))
         for name in ("4a", "4b", "4c", "4d", "4e"):
@@ -75,5 +85,7 @@ class GoogLeNet(nn.Module):
         return self.fc(x.mean(dim=(2, 3)))
 
 
-def googlenet(num_classes: int = 1000, transform_input: bool = True) -> GoogLeNet:
-    return GoogLeNet(num_classes=num_classes, transform_input=transform_input)
+def googlenet(num_classes: int = 1000, transform_input: bool = True,
+              stem_s2d: bool = False) -> GoogLeNet:
+    return GoogLeNet(num_classes=num_classes, transform_input=transform_input,
+                     stem_s2d=stem_s2d)

@@ -1,12 +1,14 @@
 """Shared victim building blocks.
 
 Attacks work in [0, 1] pixel space; the ImageNet mean/std shift lives inside
-the victim so that gradients flow through it. Port of the parts of
-``dl_attack_on_imagenet_tpu/models/layers.py`` that the victims use, over
-NCHW views: the normalization, torchvision's ``transform_input`` affine, the
-conv -> BN -> ReLU block and the max pool with the JAX package's padding
-rules. The JAX package's TPU variants (space-to-depth, the custom max-pool
-and ReLU backward passes) compute the same functions and are not ported.
+the victim so that gradients flow through it. Port of
+``dl_attack_on_imagenet_tpu/models/layers.py``, over NCHW views: the
+normalization and torchvision's ``transform_input`` affine (both tiled over
+the channels of a space-to-depth input), the space-to-depth layout of the
+S2D stems, the conv -> BN -> ReLU block and the max pool with the JAX
+package's padding rules. The JAX package's environment-selected backward
+passes of the max pool and the ReLU (``ADIL_MAXPOOL``, ``ADIL_RELU``)
+compute the same gradients with other memory traffic and are not ported.
 """
 
 from __future__ import annotations
@@ -32,10 +34,41 @@ def _channel_buffer(values) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32).reshape(1, -1, 1, 1)
 
 
+def _tiled(buf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (1, 3, 1, 1) channel buffer tiled over ``x``'s channels: a
+    space-to-depth input has 12, in the order (ki, kj, c) with c fastest."""
+    reps = x.shape[1] // buf.shape[1]
+    return buf if reps == 1 else buf.repeat(1, reps, 1, 1)
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NHWC -> blocked NHWC: (N, H, W, C) -> (N, H/b, W/b, b*b*C), channel
+    order (ki, kj, c) with c fastest: the S2D stems' compute layout, and
+    the JAX package's ``space_to_depth``. The result is contiguous."""
+    n, h, w, c = x.shape
+    xb = x.reshape(n, h // block, block, w // block, block, c)
+    return xb.permute(0, 1, 3, 2, 4, 5).reshape(n, h // block, w // block, block * block * c)
+
+
+def depth_to_space(xb: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """Inverse of :func:`space_to_depth`."""
+    n, hb, wb, cb = xb.shape
+    c = cb // (block * block)
+    x = xb.reshape(n, hb, wb, block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, hb * block, wb * block, c)
+
+
+def space_to_depth_nchw(x: torch.Tensor) -> torch.Tensor:
+    """:func:`space_to_depth` of an NCHW view (channels_last in memory, as
+    the victims' inputs are), as an NCHW view of the blocked tensor."""
+    return space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 class Normalize(nn.Module):
     """Channel normalization ``(x - mean) / std`` of NCHW images, in the
     input's dtype (mean and std are cast to it), as the JAX wrapper
-    normalizes a bf16 input in bf16."""
+    normalizes a bf16 input in bf16; tiled over a space-to-depth input's
+    channels."""
 
     def __init__(self, mean: Sequence[float] = IMAGENET_MEAN,
                  std: Sequence[float] = IMAGENET_STD):
@@ -44,14 +77,15 @@ class Normalize(nn.Module):
         self.register_buffer("std", _channel_buffer(std), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
+        return (x - _tiled(self.mean, x).to(x.dtype)) / _tiled(self.std, x).to(x.dtype)
 
 
 class TransformInput(nn.Module):
     """torchvision's ``transform_input=True`` channel affine,
     ``x_c * (std_c / 0.5) + (mean_c - 0.5) / 0.5`` (the JAX package's
     ``torch_transform_input``). GoogLeNet and Inception-v3 apply it inside
-    their forward, on top of the victim's ``Normalize``."""
+    their forward, on top of the victim's ``Normalize``; tiled over a
+    space-to-depth input's channels."""
 
     def __init__(self):
         super().__init__()
@@ -60,7 +94,7 @@ class TransformInput(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.scale + self.shift
+        return x * _tiled(self.scale, x) + _tiled(self.shift, x)
 
 
 class BasicConv2d(nn.Module):

@@ -15,6 +15,10 @@ Port of ``dl_attack_on_imagenet_tpu/parallel/adil_dp.py``, over
   leaves the loop at the same epoch. (The reference gates its loop on rank
   0, which leaves the other ranks waiting in a collective.)
 
+``blocked`` trains in the space-to-depth layout of a victim with an S2D
+stem, as the serial ``ADIL`` does: the all-reduce of D's gradient is
+elementwise, so it commutes with the column permutation.
+
 Collectives are ``all_reduce`` and ``broadcast`` on device tensors only, so
 one code path runs over NCCL between cards and over gloo on the CPU or on
 one card. Both halves of each step go through ``fused_adamw_project`` on a
@@ -33,6 +37,8 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..attacks import adil_core as core
 from ..attacks.adil_core import AdilConfig
+from ..data import ArrayDataset
+from ..models import blocked_twin, depth_to_space, space_to_depth
 from ..utils import StepTimer
 from .dist import current_device
 
@@ -263,13 +269,17 @@ def learn_dictionary_distributed(
     ``checkpoint_every`` > 0 and a ``cache`` the whole state is saved every
     that many epochs (:func:`_ckpt_save`) and, with ``resume``, restored by
     every rank on the next call, so that a killed run resumes the
-    uninterrupted trajectory. The history has the per-epoch ``loss`` and
-    ``fooling_rate``, the last ``val_fooling``, ``blocked`` (False) and the
-    epochs' ``timing``.
+    uninterrupted trajectory.
+
+    ``blocked`` ("auto" or True; False for none) trains in the layout of the
+    victim's blocked twin (``models.blocked_twin``) where it has one and the
+    images an even size, as the JAX package does: the images and the val
+    set space-to-depth'd, D drawn in the blocked shape (a ``d_init`` is
+    space-to-depth'd), the checkpoint under its own kind (``_s2d``
+    appended), and D put back in pixel order at the end. The history has
+    the per-epoch ``loss`` and ``fooling_rate``, the last ``val_fooling``,
+    ``blocked`` (whether it ran blocked) and the epochs' ``timing``.
     """
-    if blocked not in ("auto", False):
-        raise NotImplementedError("blocked=True (the space-to-depth layout) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 12)")
     images_np, _ = dataset.as_arrays()
     n = images_np.shape[0]
     image_shape = tuple(dataset.image_shape)
@@ -277,14 +287,31 @@ def learn_dictionary_distributed(
     group, rank = _group_rank(mesh, axis)
     n_dev = mesh.size()
 
+    twin = None
+    if blocked and image_shape[0] % 2 == 0 and image_shape[1] % 2 == 0:
+        twin = blocked_twin(victim)
+    if twin is not None:
+        images_np = space_to_depth(torch.as_tensor(np.asarray(images_np, np.float32))).numpy()
+        image_shape = tuple(images_np.shape[1:])
+        if d_init is not None:
+            d_init = space_to_depth(torch.as_tensor(np.asarray(d_init, np.float32)))
+        if data_val is not None:
+            data_val = ArrayDataset(
+                space_to_depth(torch.as_tensor(np.asarray(data_val.images, np.float32))).numpy(),
+                data_val.labels)
+        if ckpt_key:
+            ckpt_key = {**ckpt_key, "kind": ckpt_key.get("kind", "dp_train_state_torch") + "_s2d"}
+        victim = twin
+
     state = init_dp_state(device, image_shape, n, cfg, mesh, seed, d_init, axis)
     images = shard_rows(mesh, np.asarray(images_np, np.float32), axis, device)
     labels = label_rows_sharded(victim, images, mesh, axis)
     generator = plan_generator(seed)
     epoch_fn = make_dp_epoch_fn(victim, cfg, mesh, axis)
 
-    ckpt_key = ckpt_key or {"model": getattr(victim, "name", "model"),
-                            "kind": "dp_train_state_torch"}
+    ckpt_key = ckpt_key or {"model": getattr(victim, "name", "model"), "kind":
+                            "dp_train_state_torch_s2d" if twin is not None
+                            else "dp_train_state_torch"}
     loss_all, fooling_all, val_fool = [], [], None
     if checkpoint_every and cache is not None and resume:
         restored = _ckpt_restore(cache, ckpt_key, state, generator, mesh, axis)
@@ -319,5 +346,6 @@ def learn_dictionary_distributed(
         cache.remove("ImageNet", **ckpt_key)
     v = _gather_rows(state.v, n_dev, rank, group)[:n]
     history = {"loss": loss_all, "fooling_rate": fooling_all, "val_fooling": val_fool,
-               "blocked": False, "timing": timer.summary()}
-    return core.d_image(state.d, image_shape), v, history
+               "blocked": twin is not None, "timing": timer.summary()}
+    d = core.d_image(state.d, image_shape)
+    return (depth_to_space(d) if twin is not None else d), v, history

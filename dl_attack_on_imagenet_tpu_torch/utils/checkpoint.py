@@ -2,8 +2,16 @@
 
 Port of the msgpack backend of ``dl_attack_on_imagenet_tpu/utils/checkpoint.py``:
 the same path scheme and the same bytes, so that an artifact written by
-either package loads in the other. The orbax and sharded backends are not
-ported yet.
+either package loads in the other.
+
+The JAX package's other two formats stay refused. Its ``backend="orbax"``
+writes orbax ``StandardCheckpointer`` directories (OCDBT over tensorstore),
+which nothing but orbax reads or writes, and the port imports no JAX
+library. Its ``save_sharded``/``load_sharded`` are the collective orbax
+saves of a multi-host TPU mesh; the port's data-parallel learning
+(``parallel/adil_dp.py``) gathers the row-sharded codes to every rank
+instead and writes one msgpack payload from rank 0, which is their
+counterpart here.
 """
 
 from __future__ import annotations
@@ -52,8 +60,13 @@ class ArtifactCache:
     """
 
     def __init__(self, root: str = "trained_dicts", backend: str = "msgpack"):
+        if backend == "orbax":
+            raise NotImplementedError(
+                "the 'orbax' backend writes orbax StandardCheckpointer directories, which "
+                "only orbax (a JAX library) reads or writes; use backend=\"msgpack\", the "
+                "format both packages read")
         if backend != "msgpack":
-            raise NotImplementedError(f"the {backend!r} backend is not ported yet")
+            raise ValueError(f"backend must be 'msgpack' or 'orbax', got {backend!r}")
         self.root = root
         self.backend = backend
 

@@ -1,8 +1,9 @@
 """Tracing and step timing.
 
-Port of ``dl_attack_on_imagenet_tpu/utils/profiling.py``: ``annotate(name)``
-names a span in torch.profiler traces (a no-op without a profiler), and
-``StepTimer`` keeps wall-clock step statistics with the first ``warmup``
+Port of ``dl_attack_on_imagenet_tpu/utils/profiling.py``: ``trace(log_dir)``
+records a torch.profiler trace of the host and the card into ``log_dir``,
+``annotate(name)`` names a span in such a trace (a no-op without a
+profiler), and ``StepTimer`` keeps wall-clock step statistics with the first ``warmup``
 steps left out. A timed step must end in ``torch.cuda.synchronize()`` (or a
 host read of its result), or the timer measures only the enqueue.
 """
@@ -10,10 +11,29 @@ host read of its result), or the timer measures only the enqueue.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """Record a torch.profiler trace of CPU and, where there is one, CUDA
+    activity into ``log_dir`` as a Chrome trace (``trace.json``, which
+    Perfetto and TensorBoard open); a no-op for None. ``annotate`` spans
+    inside show in it."""
+    if not log_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def annotate(name: str):

@@ -8,8 +8,9 @@ Reads the inputs from ``DIR/inputs.npz`` and the tiny victim's weights from
 over gloo, and writes what it found to ``DIR/rank<r>.npz``: the mesh check,
 one DP epoch in fp32 and in bf16 from the given state over the given plan,
 the sharded accuracy, ``ADIL(mesh=...)`` run whole and killed after its
-first checkpoint and resumed, and two epochs of ``UAPPGD(mesh=...)``. It
-imports neither JAX nor the JAX package.
+first checkpoint and resumed, two epochs of ``UAPPGD(mesh=...)``, and two
+epochs of ``learn_dictionary_distributed`` in the space-to-depth layout on
+a ResNet-18 with an S2D stem. It imports neither JAX nor the JAX package.
 """
 
 import os
@@ -21,6 +22,7 @@ import torch.distributed as dist
 
 from dl_attack_on_imagenet_tpu_torch.attacks import ADIL, UAPPGD
 from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+from dl_attack_on_imagenet_tpu_torch.data import ArrayDataset
 from dl_attack_on_imagenet_tpu_torch.evaluation import model_accuracy_sharded
 from dl_attack_on_imagenet_tpu_torch.models import create_model
 from dl_attack_on_imagenet_tpu_torch.parallel import adil_dp, auto_initialize, check_mesh, data_mesh
@@ -108,6 +110,30 @@ def uap_run(victim, inp, mesh, root):
             "uap_saved": np.asarray(saved)}
 
 
+# The blocked run's settings; the test replays them.
+BLOCKED = dict(size=16, n=7, k=4, batch=4, steps=2, seed=0)
+
+
+def blocked_inputs():
+    """(victim, images) of the blocked run: a seeded ResNet-18 with an S2D
+    stem and seeded images."""
+    b = BLOCKED
+    victim = create_model("resnet18", input_size=b["size"], device="cpu", seed=3, stem_s2d=True)
+    images = np.random.RandomState(6).uniform(0.0, 1.0, (b["n"], b["size"], b["size"], 3))
+    return victim, images.astype(np.float32)
+
+
+def blocked_run(mesh):
+    """``learn_dictionary_distributed`` with ``blocked`` at its default."""
+    b = BLOCKED
+    victim, images = blocked_inputs()
+    cfg = core.AdilConfig(n_atoms=b["k"], batch_size=b["batch"], steps=b["steps"], loss="ce")
+    d, v, history = adil_dp.learn_dictionary_distributed(
+        victim, ArrayDataset(images, np.zeros(b["n"], np.int64)), cfg, mesh, seed=b["seed"])
+    return {"blocked_d": d.numpy(), "blocked_v": v.numpy(),
+            "blocked_loss": np.asarray(history["loss"]), "blocked_ran": np.asarray(history["blocked"])}
+
+
 def main(root: str) -> None:
     torch.set_num_threads(2)
     auto_initialize(device="cpu")
@@ -133,6 +159,7 @@ def main(root: str) -> None:
     dist.barrier()
     out.update(adil_runs(victim, inp, mesh, f"{root}/adil"))
     out.update(uap_run(victim, inp, mesh, root))
+    out.update(blocked_run(mesh))
     np.savez(f"{root}/rank{rank}.npz", **out)
     dist.destroy_process_group()
 

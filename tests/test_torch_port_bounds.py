@@ -37,3 +37,15 @@ def test_bound_is_the_larger_of_bytes_and_operations(kernel, shape, bytes_moved,
     if kernel == "fused_perturb" and bound_by == "bytes":
         assert smoke.fused_perturb_bytes(*shape) == bytes_moved
         assert round(ms, 4) == 0.0410  # 137 MB at 3.35 TB/s
+
+
+def test_fused_perturb_bound_at_the_generate_batch():
+    # cli.generate's batch of 128: v, D, x and out are 214.4 MB, 0.0640 ms at
+    # 3.35 TB/s; its 3.85 GFLOP of FMAs take 0.0575 ms at 67 TFLOP/s, so the
+    # bytes still bound it.
+    smoke = _chip_smoke()
+    n, k, m = 128, 100, 224 * 224 * 3
+    assert smoke.fused_perturb_bytes(n, k, m) == 4 * (n * k + k * m + 2 * n * m)
+    ms, by = smoke.fused_perturb_bound_ms(n, k, m)
+    assert by == "bytes" and round(ms, 4) == 0.0640
+    assert 2 * n * k * m / 67e12 * 1e3 == pytest.approx(0.0575, abs=1e-4)

@@ -101,7 +101,7 @@ def test_codec_refuses_what_it_does_not_support():
     chunked = {"d": {"__msgpack_chunked_array__": True, "shape": {"0": 1}, "chunks": {}}}
     with pytest.raises(ValueError, match="chunked"):
         msgpack_codec.unpack(msgpack.packb(chunked))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match='only orbax.*use backend="msgpack"'):
         ArtifactCache("unused", backend="orbax")
 
 
@@ -137,14 +137,21 @@ def test_adil_trains_where_the_jax_class_would_train(tmp_path):
 
 
 def test_adil_raises_where_the_jax_class_would_train(tmp_path):
-    # The options of the JAX class that the port does not take yet.
+    # blocked=True and pipeline_epochs=True, once refused, now train as the
+    # JAX class does and give the standard artifact: the tiny victim has no
+    # space-to-depth stem, so blocked=True falls back to the standard layout.
     _, _, pv = victim_pair("tiny")
-    cache = ArtifactCache(str(tmp_path))
-    x = torch.rand(2, 32, 32, 3)
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    plain = ADIL(pv, n_atoms=8, steps=2, cache=ArtifactCache(str(tmp_path / "plain")),
+                 data_train=(x.numpy(), np.zeros(2)), blocked=False, pipeline_epochs=False)
     for kwargs in (dict(blocked=True), dict(pipeline_epochs=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP.md"):
-            ADIL(pv, n_atoms=8, cache=cache, data_train=(x.numpy(), np.zeros(2)), **kwargs)
-    assert not cache.exists("ImageNet", model="tiny")
+        cache = ArtifactCache(str(tmp_path / str(sorted(kwargs))))
+        trained = ADIL(pv, n_atoms=8, steps=2, cache=cache, data_train=(x.numpy(), np.zeros(2)),
+                       **kwargs)
+        assert cache.exists("ImageNet", model="tiny") and not trained.trained_blocked
+        assert trained.dictionary.shape == (8, 32, 32, 3)
+        assert torch.equal(trained.dictionary, plain.dictionary)
+        assert trained.history["loss"] == plain.history["loss"]
 
 
 def test_adil_trains_in_bf16_where_the_jax_class_would_train(tmp_path):

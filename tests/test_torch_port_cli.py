@@ -1,5 +1,5 @@
 """The port's CLI layer against the JAX package's: the argparsers, the victim
-builder (``--weights``, ``--fast-victim``'s BatchNorm fold), ``cli.demo``'s
+builder (``--weights``, ``--fast-victim``'s S2D stem and BatchNorm fold), ``cli.demo``'s
 experiment on the same images, weights and dictionary, and ``cli.main``'s
 figure. The dictionary is one artifact that both packages read from one
 cache directory, so neither trains where the two are compared.
@@ -105,7 +105,8 @@ def test_weights_give_the_jax_checkpoints_logits(checkpoint, capsys, fast):
     assert victim.device.type == "cpu" and victim.input_size == 64
     assert any(isinstance(m, torch.nn.BatchNorm2d) for m in victim.modules()) != fast
     np.testing.assert_allclose(victim(t(x)).numpy(), want, atol=1e-4, rtol=0)
-    assert ("stem_s2d" in capsys.readouterr().out) == fast  # dropped, and said so
+    assert victim.net.stem_s2d == fast  # --fast-victim builds the space-to-depth stem
+    assert "stem_s2d" not in capsys.readouterr().out
 
 
 def test_build_victim_names_what_is_not_ported():

@@ -13,8 +13,11 @@ K=10, fused_adamw_project without a clamp against torch.optim.AdamW), and
 ADILR's forwards and AdamW trainer on the card against the CPU; the
 torchattacks grid's PGD, DIFGSM, CW, APGD-T, FAB, Square and OnePixel on
 the card against the CPU with the same draws (1e-4, equal decisions), and
-OnePixel's painting of duplicate coordinates. Every test here needs a GPU
-and skips without one.
+OnePixel's painting of duplicate coordinates; the space-to-depth stems on
+the card against the CPU and the plain stem (1e-4), both kernels on the
+blocked column order, pipelined blocked learning against the serial loop,
+and ``cli.generate`` on the card against the CPU. Every test here needs a
+GPU and skips without one.
 
 This file imports neither JAX nor the JAX package (the grid's tests take
 their runs from ``chip_smoke.py``, which imports neither), so it also runs
@@ -682,3 +685,100 @@ def test_one_pixel_paints_duplicate_coordinates_in_order_on_the_card(cuda):
     assert torch.equal(got, want)
     rows, cols = cands[:, 0, 0].long(), cands[:, 0, 1].long()
     assert torch.equal(got[torch.arange(64), rows, cols], cands[:, 3, 2:])
+
+
+@pytest.mark.parametrize("name", ["resnet18", "densenet121", "googlenet"])
+def test_s2d_stem_on_the_card_matches_the_cpu_and_the_plain_stem(cuda, name):
+    # The space-to-depth stem's 4x4 convolution over 12 channels in cuDNN:
+    # logits and the CW input gradient within 1e-4 of the CPU's and of the
+    # plain stem's on the card, and its blocked twin's the same function.
+    from dl_attack_on_imagenet_tpu_torch.models import blocked_twin, space_to_depth
+
+    victim_cpu = create_model(name, input_size=32, device="cpu", seed=1, stem_s2d=True)
+    state_dict = victim_cpu.net.state_dict()
+    s2d = create_model(name, input_size=32, device=cuda, state_dict=state_dict, stem_s2d=True)
+    plain = create_model(name, input_size=32, device=cuda, state_dict=state_dict)
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    labels = torch.tensor([1, 3])
+    out = []
+    for victim, dev in ((victim_cpu, "cpu"), (s2d, cuda), (plain, cuda)):
+        xt = x.to(dev).requires_grad_(True)
+        logits = victim(xt)
+        (grad,) = torch.autograd.grad(attack_loss(logits, labels.to(dev), loss="logits"), xt)
+        out.append((logits.detach().cpu(), grad.cpu()))
+    for other in (out[0], out[2]):
+        assert float((out[1][0] - other[0]).abs().max()) <= 1e-4
+        assert float((out[1][1] - other[1]).abs().max()) <= 1e-4
+    with torch.no_grad():
+        twin_logits = blocked_twin(s2d)(space_to_depth(x.to(cuda))).cpu()
+    assert float((twin_logits - out[1][0]).abs().max()) <= 1e-5
+
+
+def test_kernels_on_the_blocked_layout_match_their_twins(cuda):
+    # Both kernels are elementwise in M after the contraction: on the
+    # space-to-depth column order they give the permuted result.
+    from dl_attack_on_imagenet_tpu_torch.models import space_to_depth
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    d = torch.rand((8, 32, 32, 3), generator=g, device=cuda) * 2 - 1
+    x = torch.rand((5, 32, 32, 3), generator=g, device=cuda)
+    v = torch.randn((5, 8), generator=g, device=cuda) * 0.01
+    d_b, x_b = space_to_depth(d), space_to_depth(x)
+    for eps in (8 / 255, float("inf")):
+        got = fused_perturb(v, d_b, x_b, eps)
+        want = fused_perturb_reference(v, d_b.reshape(8, -1), x_b.reshape(5, -1), eps)
+        assert float((got.reshape(5, -1) - want).abs().max()) <= 1e-5
+        assert float((got - space_to_depth(fused_perturb(v, d, x, eps))).abs().max()) <= 1e-6
+    p, grad, mu, nu = _adamw_inputs(cuda, d_b.numel())
+    args = [t.reshape(8, -1) for t in (p, grad, mu, nu)]
+    _check_adamw(args, 3, 1.0)
+
+
+def test_pipelined_blocked_learning_on_the_card_equals_the_serial(cuda, tmp_path):
+    # ADIL on a ResNet-18 with an S2D stem trains blocked; the pipelined
+    # epochs equal the serial ones under deterministic cuDNN.
+    from chip_smoke import _deterministic_cudnn
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    victim = create_model("resnet18", input_size=32, device=cuda, seed=1, stem_s2d=True)
+    data = (np.random.default_rng(0).random((12, 32, 32, 3), dtype=np.float32), np.zeros(12))
+    runs = []
+    with _deterministic_cudnn():
+        for pipeline in (True, False):
+            attack = ADIL(victim, n_atoms=8, batch_size=4, steps=3, loss="logits", data_train=data,
+                          cache=ArtifactCache(str(tmp_path / str(pipeline))),
+                          pipeline_epochs=pipeline)
+            assert attack.trained_blocked
+            runs.append(attack)
+    assert runs[0].history["loss"] == runs[1].history["loss"]
+    assert float((runs[0].dictionary - runs[1].dictionary).abs().max()) <= 1e-5
+
+
+def test_generate_on_the_card_matches_the_cpu(cuda, tmp_path):
+    # cli.generate on a blob with the tiny victim: the same rows, fooling
+    # counts, and mse within 5e-5 relative (tests/test_torch_port_generate.py).
+    import json
+
+    from dl_attack_on_imagenet_tpu_torch.cli import dataset, generate
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    images = np.random.default_rng(1).random((10, 32, 32, 3), dtype=np.float32)
+    dataset.save_blob(str(tmp_path / "b.npz"), images, np.zeros(10), ["a"])
+    d = np.random.default_rng(2).uniform(-1, 1, (100, 32, 32, 3)).astype(np.float32)
+    ArtifactCache(str(tmp_path / "dicts")).save({"d": d}, "ImageNet", model="tiny")
+    # Random weights are drawn on the device's generator: both runs load one set.
+    torch.save(create_model("tiny", device="cpu", seed=0).net.state_dict(), tmp_path / "w.pt")
+    reports = []
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        generate.main(generate.build_argparser().parse_args([
+            "--model", "tiny", "--blob", str(tmp_path / "b.npz"), "--dict-dir",
+            str(tmp_path / "dicts"), "--batch-size", "6", "--steps-inference", "3",
+            "--weights", str(tmp_path / "w.pt"), "--device", dev, "--out-dir", str(out)]))
+        with open(out / "report.jsonl") as f:
+            reports.append([json.loads(line) for line in f])
+    cpu, card = reports
+    assert [(r["step"], r["n"], r["fooling"]) for r in card] == \
+        [(r["step"], r["n"], r["fooling"]) for r in cpu]
+    np.testing.assert_allclose([r["mse"] for r in card], [r["mse"] for r in cpu], rtol=5e-5)

@@ -33,7 +33,8 @@ _IMPORT_EVERY_MODULE = textwrap.dedent("""
                  "attacks.universal_pert", "ops.laplace", "attacks.adil_regularized",
                  "attacks.pgd", "attacks.fgsm_family", "attacks.cw", "attacks.apgd",
                  "attacks.fab", "attacks.square", "attacks.one_pixel", "attacks.autoattack",
-                 "ops.losses"):
+                 "ops.losses", "cli.generate", "cli.dataset", "cli.import_artifacts",
+                 "utils.import_reference", "utils.rng"):
         assert port.__name__ + "." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m == "dl_attack_on_imagenet_tpu"

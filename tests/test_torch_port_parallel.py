@@ -15,6 +15,9 @@ exactly, a killed and resumed run equals the whole one exactly, and the
 sharded accuracy equals the unsharded one exactly. Two data-parallel UAP-PGD
 epochs on the two ranks are within 1e-6 of their serial replay and, in e
 (l2) and in the losses, within 1e-5 of the JAX package's shard_map epoch.
+Two epochs of the data-parallel learning in the space-to-depth layout of a
+ResNet-18 with an S2D stem equal their serial replay on the blocked twin
+within 1e-5 (3e-6 here: the ranks' D gradients are summed in another order).
 """
 
 import os
@@ -41,12 +44,13 @@ from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
 from dl_attack_on_imagenet_tpu_torch.attacks import uap_pgd
 from dl_attack_on_imagenet_tpu_torch.cli import demo
 from dl_attack_on_imagenet_tpu_torch.evaluation import model_accuracy
+from dl_attack_on_imagenet_tpu_torch.models import blocked_twin, depth_to_space, space_to_depth
 from dl_attack_on_imagenet_tpu_torch.parallel import adil_dp
 from dl_attack_on_imagenet_tpu_torch.parallel import dist as port_dist
 from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
 
 from _torch_port import t, victim_pair
-from _torch_port_dp_worker import UAP_KW
+from _torch_port_dp_worker import BLOCKED, UAP_KW, blocked_inputs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_IMG, BATCH, K, SIZE, N_DEV = 7, 4, 8, 32, 2  # 7 rows: the second shard is padded
@@ -348,3 +352,34 @@ def test_demo_runs_distributed_and_mixed_at_world_size_one(tmp_path, monkeypatch
     assert 0.0 <= results["accuracy"] <= 1.0
     assert os.listdir("dict_model_ImageNet_version_constrained") == ["results_tiny_seed42.msgpack"]
     assert "saved results to" in capsys.readouterr().out
+
+
+def test_blocked_dp_learning_matches_its_replay(ranks):
+    # The partition-matched serial replay on the blocked twin: the same D
+    # and v draws in the blocked shape, the same plans, D put back in pixel
+    # order at the end.
+    b = BLOCKED
+    victim, images = blocked_inputs()
+    twin = blocked_twin(victim)
+    n_local = -(-b["n"] // N_DEV)
+    padded = np.concatenate([images, np.zeros((n_local * N_DEV - b["n"],) + images.shape[1:],
+                                              np.float32)])
+    xb = space_to_depth(t(padded))
+    cfg = core.AdilConfig(n_atoms=b["k"], batch_size=b["batch"], loss="ce")
+    state = core.init_state(torch.Generator().manual_seed(b["seed"]), tuple(xb.shape[1:]),
+                            n_local * N_DEV, cfg, mode="distributed")
+    plans = adil_dp.plan_generator(b["seed"])
+    epoch = adil_dp.make_dp_replay_epoch_fn(twin, cfg)
+    labels = core.predict_labels(twin, xb)
+    losses = []
+    for _ in range(b["steps"]):
+        plan = adil_dp.make_local_batches(plans, b["n"], N_DEV, b["batch"])
+        losses.append(float(epoch(state, xb, labels,
+                                  adil_dp.global_batches_from_local(plan, n_local))[0]) / b["n"])
+    d = depth_to_space(core.d_image(state.d, tuple(xb.shape[1:])))
+    for out in ranks:
+        assert bool(out["blocked_ran"])
+        assert out["blocked_d"].shape == (b["k"], b["size"], b["size"], 3)
+        np.testing.assert_allclose(out["blocked_d"], d.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out["blocked_v"], state.v[:b["n"]].numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out["blocked_loss"], losses, rtol=1e-5)
