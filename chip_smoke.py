@@ -33,7 +33,7 @@ phase, and exits non-zero if any phase fails:
    ``alter`` for 1 round;
 7. serves one batch of 64 on each other victim of the zoo at full width and
    depth (DenseNet-169, GoogLeNet, Inception-v3, VGG-16, ViT-B/16 at
-   224x224; supervised DDrague cut to 10 steps and 10 unsupervised trials),
+   224x224; supervised DDrague cut to 5 steps and 5 unsupervised trials),
    timed and traced like phase 5; then holds ``fused_perturb`` against its
    twin at Inception's native 299x299 (M = 268203, odd: the kernel's scalar
    instance) and serves one Inception batch there;
@@ -71,7 +71,7 @@ phase, and exits non-zero if any phase fails:
    batch of 64, and learning data-parallel at world size 1 over NCCL
    against its serial replay (1e-5, deterministic cuDNN); DeepFool and
    DeepFoolCosinus on a batch of 16 (10 classes, 10 iterations; DeepFool
-   traced); Fast-UAP and Moosavi's universal perturbation on 32 images
+   traced); Fast-UAP and Moosavi's universal perturbation on 16 images
    with 16 for val (chunk 1), with their DeepFool solves counted; the
    harness's lazy ``learn_attack`` and the transfer of the learned UAP onto
    ResNet-50 and DenseNet-121; DeepFool and a UAP-PGD epoch on the card
@@ -79,7 +79,8 @@ phase, and exits non-zero if any phase fails:
 14. runs the reference's torchattacks grid on ResNet-50 at 224x224, batch
    64, eps 8/255 and alpha 2/255 (the classifier tempered): VANILA, GN, the
    FGSM family, PGD and BIM, CW, APGD-CE and APGD-T, FAB and FAB-T, Square,
-   OnePixel and AutoAttack at cut depths (10 steps, 100 Square queries),
+   OnePixel and AutoAttack at cut depths (5 steps; 100 Square queries, 50
+   in AutoAttack),
    each timed after a warm-up with its fooled share and largest l∞
    distance, inside [0, 1] and, where the budget is fixed, inside eps; PGD
    and Square traced; every family on the card against the CPU on the tiny
@@ -122,7 +123,24 @@ phase, and exits non-zero if any phase fails:
    size 1 with ``blocked=True`` against its serial replay on the twin;
 19. runs one ``cli.generate`` batch inside ``utils.trace`` and checks that
    the trace file holds CUDA kernels;
-20. prints the whole run's time and one ``{"kernels": [...]}`` line, each
+20. runs a bf16 victim (``create_model(dtype=torch.bfloat16)``) beside the
+   fp32 one on ResNet-50 at 224x224: 10 chained ``gd`` steps at b64 K=100,
+   a supervised DDrague batch of 64 (30 steps) and a supervised AdamW-codes
+   batch through ``ADIL``, one ``cli.generate`` supervised batch of 128,
+   then ``bench.py``'s configuration (bf16, the S2D stem on blocked input,
+   BatchNorms folded: the step and DDrague through the twin), each with its
+   wall, launches and fooled share, the step and DDrague traced for their
+   busy share; every tensor handed to a kernel on that path must be fp32;
+   then every family's bf16 victim on the card against the CPU at a small
+   size by the gap rule of the CPU tests (the card's bf16 logits and CW
+   input gradient no further from the CPU's bf16 ones than those are from
+   the CPU's fp32 ones, in relative l2);
+21. runs the ``gd`` step on ResNet-50 at b64 under each ``ADIL_MAXPOOL`` x
+   ``ADIL_RELU`` backward variant (``models.layers.POOL_MODE`` and
+   ``RELU_MODE``): ms a step, peak memory, and the input gradient's largest
+   gap from the default under deterministic cuDNN (0 but under ``slices``
+   and ``vjp``);
+22. prints the whole run's time and one ``{"kernels": [...]}`` line, each
    kernel's ADILR shape under ``"adilr"``, ``fused_perturb`` at N=128 under
    ``"n128"`` and both kernels on the blocked layout under ``"blocked"``,
    then the result line ``{"ok": true, "device": {...}}`` last.
@@ -646,7 +664,7 @@ def check_fused_perturb_inception(dev, size: int = 299) -> float:
 
 def serve_zoo(dev, zoo=ZOO, size: int = 224, native: int = 299, n: int = 64):
     """One served batch of 64 on each victim of ``ZOO`` at 224x224 (K=100,
-    eps 8/255 l∞, CW loss): supervised DDrague cut to 10 steps and 10
+    eps 8/255 l∞, CW loss): supervised DDrague cut to 5 steps and 5
     unsupervised trials, each timed and traced as in ``serve``; then
     ``fused_perturb`` at Inception's 299x299 and one Inception batch there.
     Returns (fused_perturb launches of the timed runs, the largest error of
@@ -665,8 +683,8 @@ def serve_zoo(dev, zoo=ZOO, size: int = 224, native: int = 299, n: int = 64):
             victim, images = _served_inputs(dev, name, side, cache, n=n)
             built = time.perf_counter() - t0
             for mode in ("supervised", "unsupervised"):
-                attack = ADIL(victim, eps=EPS, n_atoms=100, loss="logits", steps_inference=10,
-                              trials=10, cache=cache, attack=mode)
+                attack = ADIL(victim, eps=EPS, n_atoms=100, loss="logits", steps_inference=5,
+                              trials=5, cache=cache, attack=mode)
                 launches += _serve_mode(attack, images, victim, f"{name} {side}x{side} {mode}",
                                         mode == "unsupervised")
             print(f"zoo {name} at {side}x{side}: {time.perf_counter() - t0:.1f} s in all, "
@@ -1302,7 +1320,7 @@ def _temper(victim, images, b: int = 64):
 
 
 def universal_baselines(dev, model: str = "resnet50", size: int = 224, n_train: int = 256,
-                        b: int = 64, n_df: int = 16, n_uni: int = 32, n_val: int = 16,
+                        b: int = 64, n_df: int = 16, n_uni: int = 16, n_val: int = 16,
                         transfer: str = "densenet121") -> None:
     """The universal baselines on ResNet-50 at 224x224 through their entry
     points, at the JAX package's operating points
@@ -1312,7 +1330,7 @@ def universal_baselines(dev, model: str = "resnet50", size: int = 224, n_train: 
     world size 1 over NCCL against its serial replay; DeepFool and
     DeepFoolCosinus on a batch of 16 (10 classes, 10 iterations), timed
     after a warm-up and traced; Fast-UAP and the universal perturbation
-    on 32 images with 16 for val (chunk 1, DeepFool at most 10
+    on 16 images with 16 for val (chunk 1, DeepFool at most 10
     iterations); the harness's lazy ``learn_attack`` on a batch the victim
     partly misclassifies, and the transfer of the learned UAP onto
     ResNet-50 and DenseNet-121; then the small-size card-against-CPU
@@ -1948,7 +1966,7 @@ def _grid_attacks(victim):
         APGD, APGDT, BIM, CW, DIFGSM, EOTPGD, FAB, FFGSM, FGSM, GN, MIFGSM, PGD, RFGSM, TPGD,
         VANILA, AutoAttack, OnePixel, Square)
 
-    eps, a, steps = GRID_EPS, GRID_ALPHA, 10
+    eps, a, steps = GRID_EPS, GRID_ALPHA, 5
     return [
         ("vanila", lambda warm: VANILA(victim), True),
         ("gn sigma=0.1", lambda warm: GN(victim, sigma=0.1), False),
@@ -1979,7 +1997,7 @@ def _grid_attacks(victim):
             victim, pixels=5, inf_batch=50, steps=0 if warm else 10), False),
         ("autoattack Linf n_classes=1000", lambda warm: AutoAttack(
             victim, norm="Linf", eps=eps, n_classes=1000, steps=1 if warm else steps,
-            n_queries=2 if warm else 100), True),
+            n_queries=2 if warm else 50), True),
     ]
 
 
@@ -2005,11 +2023,11 @@ def torchattacks_grid(dev, model: str = "resnet50", size: int = 224, n: int = 64
     print(f"torchattacks grid on {model} {size}x{size}, b{n}, eps 8/255, alpha 2/255, fp32: "
           f"classifier divided by the median top-2 logit gap {gap:.4f}; clean top-1 probability "
           f"median {float(probs.median()):.6f}, {labels.unique().numel()} distinct labels. Cuts "
-          "of depth: 100 -> 10 steps for the gradient attacks (EOTPGD eot_iter=2, DIFGSM p=0.5 "
-          "rr=0.9, MIFGSM decay=0.1), CW c=1 lr=0.001 at 10 steps, APGD-CE and APGD-T "
-          "(n_classes=10) at 10 steps, FAB and FAB-T (n_classes=10) at 5, Square (ce) at 100 "
+          "of depth: 100 -> 5 steps for the gradient attacks (EOTPGD eot_iter=2, DIFGSM p=0.5 "
+          "rr=0.9, MIFGSM decay=0.1), CW c=1 lr=0.001 at 5 steps, APGD-CE and APGD-T "
+          "(n_classes=10) at 5 steps, FAB and FAB-T (n_classes=10) at 5, Square (ce) at 100 "
           "queries of 5000, OnePixel pixels=5 inf_batch=50 at its default 10 generations, "
-          "AutoAttack (Linf, n_classes=1000) at 10 steps and 100 Square queries")
+          "AutoAttack (Linf, n_classes=1000) at 5 steps and 50 Square queries")
     walls, traced = {}, {"pgd": None, "square ce": None}
     for label, build, bounded in _grid_attacks(victim):
         build(True)(images, labels)  # warm-up
@@ -2621,6 +2639,308 @@ def blocked_phase(dev, model: str = "resnet50", size: int = 224, n: int = 64, k:
     return perturb, adamw
 
 
+@contextlib.contextmanager
+def _kernel_dtypes():
+    """Record the dtypes the attack core hands each kernel wrapper while the
+    block runs (the wrappers also refuse anything but fp32 on the card)."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+
+    seen = set()
+    real = {name: getattr(core, name) for name in ("fused_perturb", "fused_adamw_project")}
+
+    def recorded(name):
+        def wrapper(*args, **kwargs):
+            seen.update((name, t.dtype) for t in args if torch.is_tensor(t))
+            return real[name](*args, **kwargs)
+        return wrapper
+
+    for name in real:
+        setattr(core, name, recorded(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(core, name, fn)
+
+
+def _state_copy(state):
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+
+    return core.TrainState(**{f: (v.clone() if torch.is_tensor(v) else v)
+                              for f, v in vars(state).items()})
+
+
+def _timed_steps(victim, cfg, state, xs, labels, n_steps: int):
+    """A warm-up ``gd`` step, then ``n_steps`` chained ones timed with the
+    launch counts at 0 before them: (ms a step, fused_adamw_project
+    launches, losses)."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project
+
+    n = xs.shape[0]
+    idx, mask = torch.arange(n, device=xs.device), torch.ones(n, device=xs.device)
+    core.make_train_step(victim, cfg, "both")(state, xs, labels, idx, mask)
+    scan = core.make_train_scan(victim, cfg, "both", n_steps=n_steps)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses, _ = scan(state, xs, labels, idx, mask)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    launches = fused_adamw_project.launches
+    if launches != 2 * n_steps or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{launches} launches in {n_steps} steps, or a bad loss {losses}")
+    return ms, launches, losses
+
+
+def _rel(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def check_bf16_families_against_cpu(dev) -> None:
+    """Each family's bf16 victim on the card against the same bf16 victim on
+    the CPU at a small input size, batch 2, by the gap rule of the CPU
+    tests: the card's bf16 logits and CW input gradient no further from the
+    CPU's bf16 ones (relative l2) than those are from the CPU's fp32 ones,
+    argmax equal."""
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import attack_loss
+
+    g = torch.Generator().manual_seed(3)
+    labels = torch.tensor([1, 3])
+    builds = ([("resnet18", 32, {}), ("resnet18", 32, {"stem_s2d": True, "fold_bn": True})]
+              + [(name, size, {}) for name, size in SMALL_FAMILIES])
+    for name, size, kwargs in builds:
+        cpu32 = create_model(name, input_size=size, device="cpu", seed=1)
+        weights = cpu32.net.state_dict()
+        x = torch.rand((2, size, size, 3), generator=g)
+        out = {}
+        for tag, d, dtype in (("cpu32", "cpu", torch.float32), ("cpu16", "cpu", torch.bfloat16),
+                              ("card16", dev, torch.bfloat16)):
+            victim = create_model(name, input_size=size, device=d, state_dict=weights,
+                                  dtype=dtype, **kwargs) if tag != "cpu32" or kwargs else cpu32
+            xt = x.to(d).requires_grad_(True)
+            logits = victim(xt)
+            (grad,) = torch.autograd.grad(attack_loss(logits.float(), labels.to(d),
+                                                      loss="logits"), xt)
+            out[tag] = (logits.detach().float().cpu(), grad.cpu(), logits.dtype)
+        torch.cuda.synchronize()
+        label = name + (" s2d folded" if kwargs else "")
+        ratios = [_rel(out["card16"][i], out["cpu16"][i]) / _rel(out["cpu16"][i], out["cpu32"][i])
+                  for i in (0, 1)]
+        argmax = bool((out["card16"][0].argmax(-1) == out["cpu16"][0].argmax(-1)).all())
+        print(f"bf16 small-size {label} at {size}x{size}: card against CPU over the CPU's "
+              f"bf16-vs-fp32 gap: logits {ratios[0]:.3f}, CW input gradient {ratios[1]:.3f} "
+              f"(tol 1; the gap {_rel(out['cpu16'][0], out['cpu32'][0]):.2e} and "
+              f"{_rel(out['cpu16'][1], out['cpu32'][1]):.3f}), argmax equal {argmax}")
+        if out["card16"][2] != torch.bfloat16 or not argmax or not max(ratios) <= 1.0:
+            raise AssertionError(f"bf16 {label} on the card leaves the gap rule: {ratios}")
+
+
+def bf16_victim(dev, root: str, model: str = "resnet50", size: int = 224, n: int = 64,
+                k: int = 100, steps: int = 30, batch: int = 128, n_steps: int = 10):
+    """A bf16 victim (``create_model(dtype=torch.bfloat16)``) beside the fp32
+    one on ``model``: 10 chained ``gd`` steps at b``n``, a supervised DDrague
+    batch of ``n`` (``steps`` steps) and a supervised AdamW-codes batch
+    through ``ADIL``, one ``cli.generate`` batch of ``batch`` (supervised,
+    the classifier tempered), then ``bench.py``'s configuration (bf16, the
+    S2D stem on blocked input, BatchNorms folded: the step and a DDrague
+    batch through the twin). Each path prints its wall, launches and
+    fooled share, the step and DDrague their busy share; every tensor
+    handed to a kernel must be fp32. Returns the (fused_perturb,
+    fused_adamw_project) launches of the timed runs."""
+    import dataclasses
+    import functools
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.cli import _victim, dataset, generate
+    from dl_attack_on_imagenet_tpu_torch.models import blocked_twin, create_model, space_to_depth
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    cfg = core.AdilConfig(eps=EPS, norm="linf", n_atoms=k, loss="logits", kappa=50.0,
+                          step_size=0.01, batch_size=n)
+    g = torch.Generator(device=dev).manual_seed(1)
+    images = torch.rand((n, size, size, 3), generator=g, device=dev)
+    start = core.init_state(g, (size, size, 3), n, cfg)
+    dicts = os.path.join(root, "bf16_dicts")
+    cache = ArtifactCache(dicts)
+    _save_dictionary(dev, cache, model, size, k)
+    walls, perturb, adamw = {}, 0, 0
+    with _kernel_dtypes() as seen:
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            victim = create_model(model, input_size=size, device=dev, seed=0, dtype=dtype)
+            labels = core.predict_labels(victim, images)
+            state = _state_copy(start)
+            ms, launches, losses = _timed_steps(victim, cfg, state, images, labels, n_steps)
+            adamw += launches
+            walls[tag, "step"] = ms / 1e3
+            _check_trained(f"{tag} victim train", state.d, state.v, EPS)
+            print(f"bf16 victim phase, {tag} {model}: gd step at b{n} K={k} {size}x{size} "
+                  f"{ms:.2f} ms/step over {n_steps} chained steps, fused_adamw_project launches "
+                  f"{launches}, loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f}")
+            idx, mask = torch.arange(n, device=dev), torch.ones(n, device=dev)
+            print_device_breakdown(f"{tag} victim train step", lambda: core.make_train_step(
+                victim, cfg, "both")(state, images, labels, idx, mask), ms / 1e3)
+            for mode in ("supervised", "supervised_adamw"):
+                attack = ADIL(victim, eps=EPS, n_atoms=k, loss="logits", steps_inference=steps,
+                              cache=cache)
+                run = attack.forward_supervised_adamw if mode == "supervised_adamw" else attack
+                full = attack.cfg
+                attack.cfg = dataclasses.replace(full, steps_inference=2, steps_code=2)
+                run(images)  # warm-up at 2 solver steps
+                attack.cfg = full
+                _zero_counts()
+                adv, wall = _timed_run(lambda: run(images))
+                launches = (fused_perturb.launches, fused_adamw_project.launches)
+                perturb += launches[0]
+                walls[tag, mode] = wall
+                linf = float((adv - images).abs().max())
+                print(f"bf16 victim phase, {tag} {mode}: wall {wall:.3f} s, launches "
+                      f"{launches[0]} / {launches[1]}, fooled share "
+                      f"{_fooled_share(victim, adv, images):.4f}, |adv - x|_inf {linf:.6f}")
+                if launches != (1, 0) or adv.dtype != torch.float32 or not (
+                        bool(torch.isfinite(adv).all()) and float(adv.min()) >= 0
+                        and float(adv.max()) <= 1):
+                    raise AssertionError(f"{tag} {mode}: launches {launches} or bad adversaries")
+                if mode == "supervised_adamw" and not linf <= EPS + 1e-5:
+                    raise AssertionError(f"{tag} {mode}: l∞ budget broken: {linf}")
+                if mode == "supervised":
+                    print_device_breakdown(f"{tag} victim DDrague", lambda: run(images), wall)
+
+        # One cli.generate batch of `batch` in each dtype, the classifier
+        # tempered as in the generate phase (CE saturates on the seed-0 net).
+        blob_images = np.random.default_rng(5).random((batch, size, size, 3), dtype=np.float32)
+        blob = os.path.join(root, "bf16_blob.npz")
+        dataset.save_blob(blob, blob_images, np.zeros(batch), ["synthetic"])
+        tempered = create_model(model, input_size=size, device=dev, seed=0)
+        _temper(tempered, torch.as_tensor(blob_images, device=dev))
+        weights = os.path.join(root, f"{model}_bf16_tempered.pt")
+        torch.save({key: t.cpu() for key, t in tempered.net.state_dict().items()}, weights)
+        real_build = _victim.build_victim
+        for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            out = os.path.join(root, f"bf16_generate_{tag}")
+            args = generate.build_argparser().parse_args([
+                "--model", model, "--dict-dir", dicts, "--device", str(dev), "--input-size",
+                str(size), "--steps-inference", str(steps), "--batch-size", str(batch),
+                "--weights", weights, "--blob", blob, "--out-dir", out])
+            _victim.build_victim = functools.partial(real_build, dtype=dtype)
+            try:
+                _zero_counts()
+                summary, wall = _timed_run(lambda: generate.main(args))
+            finally:
+                _victim.build_victim = real_build
+            (report,) = _read_report(out)
+            perturb += fused_perturb.launches
+            walls[tag, "generate"] = report["seconds"]
+            print(f"bf16 victim phase, {tag} cli.generate: one supervised batch of {batch} "
+                  f"{report['seconds']:.3f} s ({batch / report['seconds']:.2f} images/s; the "
+                  f"call {wall:.2f} s with the victim's build), fooling rate "
+                  f"{report['fooling']:.4f}, mse {report['mse']:.6f}, fused_perturb launches "
+                  f"{fused_perturb.launches}")
+            if fused_perturb.launches != 1 or summary["total"] != batch:
+                raise AssertionError(f"{tag} generate: {fused_perturb.launches} launches")
+
+        # bench.py's configuration: bf16, the S2D stem on blocked input,
+        # BatchNorms folded; the gd step and DDrague through the twin.
+        victim = create_model(model, input_size=size, device=dev, seed=0, dtype=torch.bfloat16,
+                              stem_s2d=True, fold_bn=True)
+        twin = blocked_twin(victim)
+        state = _state_copy(start)
+        state.d = space_to_depth(core.d_image(state.d, (size, size, 3))).reshape(k, -1)
+        state.d_mu, state.d_nu = torch.zeros_like(state.d), torch.zeros_like(state.d)
+        xs = space_to_depth(images)
+        labels = core.predict_labels(twin, xs)
+        ms, launches, losses = _timed_steps(twin, cfg, state, xs, labels, n_steps)
+        adamw += launches
+        walls["bench", "step"] = ms / 1e3
+        print_device_breakdown("bench.py's configuration train step", lambda: core.make_train_step(
+            twin, cfg, "both")(state, xs, labels, idx, mask), ms / 1e3)
+        print(f"bf16 victim phase, bench.py's configuration (bf16, stem_s2d on blocked input, "
+              f"fold_bn): gd step {ms:.2f} ms/step, fused_adamw_project launches {launches}, "
+              f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f}")
+        attack = ADIL(victim, eps=EPS, n_atoms=k, loss="logits", steps_inference=steps,
+                      cache=cache, blocked=True)
+        attack(images)  # warm-up, and the blocked dictionary's build
+        _zero_counts()
+        adv, wall = _timed_run(lambda: attack(images))
+        perturb += fused_perturb.launches
+        walls["bench", "supervised"] = wall
+        print(f"bf16 victim phase, bench.py's configuration: DDrague through the twin {wall:.3f} "
+              f"s, fused_perturb launches {fused_perturb.launches}, fooled share "
+              f"{_fooled_share(victim, adv, images):.4f}")
+        if fused_perturb.launches != 1 or not bool(torch.isfinite(adv).all()):
+            raise AssertionError("bench configuration DDrague: launches or bad adversaries")
+    kinds = sorted((name, str(dt)) for name, dt in seen)
+    print(f"bf16 victim phase: tensors handed to the kernels: {kinds}")
+    if {dt for _, dt in seen} != {torch.float32} or len({name for name, _ in seen}) != 2:
+        raise AssertionError(f"a kernel got another dtype than fp32, or did not run: {kinds}")
+    print("bf16 victim phase, bf16 over fp32: " + ", ".join(
+        f"{what} {walls['bf16', what] / walls['fp32', what]:.3f}"
+        for what in ("step", "supervised", "supervised_adamw", "generate"))
+        + f"; bench.py's configuration over the fp32 step {walls['bench', 'step'] / walls['fp32', 'step']:.3f}")
+    return perturb, adamw
+
+
+ACTIVATION_MODES = tuple((pool, relu) for pool in ("sas", "vjp", "slices")
+                         for relu in ("plain", "bool", "packed"))
+
+
+def activation_modes(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100,
+                     n_steps: int = 5) -> int:
+    """The ``gd`` step on ``model`` at b``n`` under each ``ADIL_MAXPOOL`` x
+    ``ADIL_RELU`` mode (set through ``models.layers.POOL_MODE`` and
+    ``RELU_MODE``, which the environment names set at import): ms a step
+    over ``n_steps`` chained steps after a warm-up, the peak memory of those
+    steps, and the CW input gradient's largest gap from the default modes'
+    under deterministic cuDNN (0 expected but under ``slices``, which
+    splits a tie, and ``vjp``, which adds overlapping windows' gradients in
+    its own order). Returns the fused_adamw_project launches."""
+    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
+    from dl_attack_on_imagenet_tpu_torch.models import create_model, layers
+    from dl_attack_on_imagenet_tpu_torch.ops import attack_loss
+
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    cfg = core.AdilConfig(eps=EPS, n_atoms=k, loss="logits", batch_size=n)
+    g = torch.Generator(device=dev).manual_seed(2)
+    images = torch.rand((n, size, size, 3), generator=g, device=dev)
+    start = core.init_state(g, (size, size, 3), n, cfg)
+    labels = core.predict_labels(victim, images)
+    base, total, gaps = None, 0, {}
+    modes = (layers.POOL_MODE, layers.RELU_MODE)
+    try:
+        for pool, relu in ACTIVATION_MODES:
+            layers.POOL_MODE, layers.RELU_MODE = pool, relu
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms, launches, _ = _timed_steps(victim, cfg, _state_copy(start), images, labels,
+                                           n_steps)
+            peak = torch.cuda.max_memory_allocated(dev)
+            total += launches
+            x = images.clone().requires_grad_(True)
+            with _deterministic_cudnn():
+                (grad,) = torch.autograd.grad(attack_loss(victim(x), labels, loss="logits"), x)
+            base = grad if base is None else base
+            gap = float((grad - base).abs().max())
+            print(f"activation modes, ADIL_MAXPOOL={pool} ADIL_RELU={relu}: gd step on {model} "
+                  f"at b{n} {ms:.2f} ms/step over {n_steps} chained steps, peak memory "
+                  f"{peak / 2**30:.3f} GiB, fused_adamw_project launches {launches}, input "
+                  f"gradient's largest gap from the default {gap:.3e} (|gradient| up to "
+                  f"{float(base.abs().max()):.3e})")
+            if pool == "sas" and gap != 0.0:
+                raise AssertionError(f"ADIL_RELU={relu} changed the input gradient: {gap}")
+            if relu != "plain" and gap != gaps[pool]:
+                raise AssertionError(f"ADIL_RELU={relu} under ADIL_MAXPOOL={pool} changed the "
+                                     f"input gradient: {gap} against {gaps[pool]}")
+            gaps.setdefault(pool, gap)
+    finally:
+        layers.POOL_MODE, layers.RELU_MODE = modes
+    return total
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2701,6 +3021,11 @@ def main() -> None:
         kernels[0]["launches"] += perturb
         kernels[1]["launches"] += adamw
         timed("trace", trace_phase, dev, root, blob, dicts, weights)
+        perturb, adamw = timed("bf16 victim", bf16_victim, dev, root)
+        kernels[0]["launches"] += perturb
+        kernels[1]["launches"] += adamw
+    timed("bf16 small-size checks", check_bf16_families_against_cpu, dev)
+    kernels[1]["launches"] += timed("activation modes", activation_modes, dev)
     from dl_attack_on_imagenet_tpu_torch.parallel.dist import shutdown
 
     shutdown()

@@ -43,9 +43,13 @@ def set_precision() -> None:
           "(torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False)")
 
 
-def build_victim(args):
+def build_victim(args, dtype=None):
     """The victim of ``args`` (model, seed, input size, weights, fast-victim,
-    device), loaded and folded in that order, after :func:`set_precision`."""
+    device), loaded and folded in that order, after :func:`set_precision`.
+    ``dtype`` is its compute dtype (``torch.bfloat16``; None is fp32), as
+    in the JAX package."""
+    import torch
+
     from ..models import blanket_input_size, create_model, fast_victim_kwargs
 
     set_precision()
@@ -54,6 +58,7 @@ def build_victim(args):
         print(f"warning: --fast-victim has no knobs for '{args.model}'; ignored")
     victim = create_model(args.model, seed=args.seed, device=args.device,
                           stem_s2d=knobs.get("stem_s2d", False),
+                          dtype=torch.float32 if dtype is None else dtype,
                           input_size=blanket_input_size(args.model,
                                                         getattr(args, "input_size", None)))
     if args.weights:

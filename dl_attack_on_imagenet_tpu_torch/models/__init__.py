@@ -7,7 +7,10 @@ normalization is prepended, and the result is a frozen function from [0, 1]
 NHWC images to logits: eval mode, no weight gradients, weights in
 ``channels_last``. The ResNets, DenseNet and GoogLeNet take ``stem_s2d``
 (their stem on 2x2 space-to-depth blocks); :func:`blocked_twin` gives such a
-victim's twin over the blocked images themselves.
+victim's twin over the blocked images themselves. ``dtype=torch.bfloat16``
+builds a bf16 victim: fp32 parameters, bf16 compute layer by layer as the
+JAX package's ``dtype=jnp.bfloat16`` victim (``models.layers``), bf16
+logits.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from .densenet import densenet121, densenet169
 from .fold import fold_batchnorms_, foldable
 from .googlenet import googlenet
 from .inception import inception_v3
-from .layers import IMAGENET_MEAN, IMAGENET_STD, Normalize, depth_to_space, space_to_depth
+from .layers import (IMAGENET_MEAN, IMAGENET_STD, Normalize, depth_to_space, resolve_dtype,
+                     space_to_depth)
 from .mobilenet import mobilenet_v2
 from .resnet import resnet18, resnet34, resnet50
 from .tiny import tiny_cnn
@@ -89,10 +93,13 @@ class VictimModel(nn.Module):
 
     ``forward`` permutes the NHWC batch to an NCHW view; on a contiguous
     NHWC tensor that view is already in ``channels_last`` memory format, so
-    no copy is made before the first convolution. A bf16 input (the
-    mixed-precision forwards) is normalized in bf16 and then cast to fp32
-    for the net, whose layers stay fp32: the JAX wrapper normalizes in the
-    input's dtype and Flax's fp32 layers promote the result.
+    no copy is made before the first convolution. The input is normalized
+    in its own dtype, as the JAX wrapper normalizes it. ``dtype`` is the
+    net's compute dtype: an fp32 net takes the normalized input cast to
+    fp32 (Flax's fp32 layers promote a bf16 one); a bf16 net takes it as it
+    is, each layer casting to bf16 where Flax's does, and returns bf16
+    logits, which the attacks cast to fp32 before a loss, as the JAX
+    package's do.
 
     ``blocked_input=True`` makes the victim of the 2x2 space-to-depth
     images ``(N, S/2, S/2, 12)`` (``layers.space_to_depth``) of a net with
@@ -101,7 +108,8 @@ class VictimModel(nn.Module):
 
     def __init__(self, name: str, net: nn.Module, input_size: int,
                  normalize: bool = True, mean: Sequence[float] = IMAGENET_MEAN,
-                 std: Sequence[float] = IMAGENET_STD, blocked_input: bool = False):
+                 std: Sequence[float] = IMAGENET_STD, blocked_input: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.name = name
         self.net = net
@@ -109,6 +117,7 @@ class VictimModel(nn.Module):
         self.num_classes = net.num_classes
         self.mean, self.std = tuple(mean), tuple(std)
         self.blocked_input = blocked_input
+        self.dtype = resolve_dtype(dtype)
         self.norm = Normalize(mean, std) if normalize else None
 
     @property
@@ -119,9 +128,11 @@ class VictimModel(nn.Module):
         x = x.permute(0, 3, 1, 2)
         if self.norm is not None:
             x = self.norm(x)
+        if self.dtype == torch.float32:
+            x = x.float()
         if self.blocked_input:
-            return self.net(x.float(), blocked_input=True)
-        return self.net(x.float())
+            return self.net(x, blocked_input=True)
+        return self.net(x)
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Hard labels."""
@@ -168,6 +179,7 @@ def create_model(
     fold_bn: bool = False,
     stem_s2d: bool = False,
     blocked_input: bool = False,
+    dtype: torch.dtype = torch.float32,
     **model_kwargs,
 ) -> VictimModel:
     """Build a frozen victim by registry name.
@@ -184,6 +196,9 @@ def create_model(
     stem (the same parameters); ``blocked_input=True`` builds it as the
     victim of blocked images (see :class:`VictimModel`). Other families
     refuse both with a ``TypeError``, as the JAX package's do.
+    ``dtype`` is the compute dtype, ``torch.float32`` or ``torch.bfloat16``:
+    the parameters stay fp32 and a bf16 victim computes and returns bf16
+    (see :class:`VictimModel`).
     """
     key = name.lower()
     if key not in MODEL_REGISTRY:
@@ -191,6 +206,7 @@ def create_model(
     if fold_bn and not foldable(key):
         raise ValueError(f"model '{name}' has no folded form")
     dev = resolve_device(device)
+    dtype = resolve_dtype(dtype)
     ctor, default_size = MODEL_REGISTRY[key]
     size = input_size or default_size
     if key == "tiny":
@@ -200,7 +216,7 @@ def create_model(
     if stem_s2d or blocked_input:
         model_kwargs["stem_s2d"] = True
     with torch.device(dev):
-        net = ctor(num_classes=num_classes, **model_kwargs)
+        net = ctor(num_classes=num_classes, dtype=dtype, **model_kwargs)
     if state_dict is None:
         # The ResNets and the tiny CNN keep the fan_out rule they were first
         # drawn with. Under it, with BatchNorm at its identity statistics, a
@@ -216,7 +232,7 @@ def create_model(
     if fold_bn:
         fold_batchnorms_(net)
     net = net.to(memory_format=torch.channels_last)
-    victim = VictimModel(key, net, size, normalize, mean, std, blocked_input)
+    victim = VictimModel(key, net, size, normalize, mean, std, blocked_input, dtype)
     victim.to(dev)
     victim.eval()
     victim.requires_grad_(False)
@@ -229,7 +245,8 @@ def blocked_twin(victim: VictimModel) -> Optional[VictimModel]:
     with GoogLeNet's ``transform_input`` kept inside the net; None where the
     victim's net has no S2D stem, as in the JAX package, whose plain stem
     keeps its parameters elsewhere. Memoized on the victim (outside its
-    submodules, so that its ``state_dict`` does not change)."""
+    submodules, so that its ``state_dict`` does not change). The twin keeps
+    the victim's dtype."""
     if victim.blocked_input:
         return victim
     if not getattr(victim.net, "stem_s2d", False):
@@ -238,7 +255,7 @@ def blocked_twin(victim: VictimModel) -> Optional[VictimModel]:
     if twin is None:
         twin = VictimModel(victim.name, victim.net, victim.input_size,
                            victim.norm is not None, victim.mean, victim.std,
-                           blocked_input=True)
+                           blocked_input=True, dtype=victim.dtype)
         twin.to(victim.device)
         twin.eval()
         twin.requires_grad_(False)

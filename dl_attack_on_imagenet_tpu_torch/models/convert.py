@@ -297,11 +297,13 @@ def state_dict_from_flax(variables_np: Dict) -> Dict[str, torch.Tensor]:
 _AUX_PREFIXES = ("AuxLogits.", "aux1.", "aux2.")
 
 
-def load_torch_checkpoint(path: str, victim):
+def load_torch_checkpoint(path: str, victim, vit: bool = False):
     """Load a ``torch.save``d torchvision ``state_dict`` into ``victim`` in
     place and return it. The port's modules use torchvision's names, so no
     conversion is needed; the auxiliary heads' keys, which the victims do
-    not have, are dropped first, as the JAX package drops them."""
+    not have, are dropped first, as the JAX package drops them. ``vit``, the
+    JAX package's switch to its ViT converter, is accepted and changes
+    nothing: the port's ViT has torchvision's names too."""
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
     victim.net.load_state_dict({
         k: v for k, v in state_dict.items()

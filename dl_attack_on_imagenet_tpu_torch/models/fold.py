@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .layers import Normalize
+
 
 _FOLDABLE = ("resnet", "googlenet", "inception", "mobilenet")
 
@@ -56,11 +58,17 @@ def fold_batchnorms_(net: nn.Module) -> nn.Module:
     return net
 
 
-def fold_victim(victim):
+def fold_victim(victim, normalize=None):
     """Fold ``victim``'s BatchNorms into its convolutions, in place, and
-    return it; its logits match the unfolded ones to fp32 rounding. Raises
-    ``ValueError`` for a victim with no folded form."""
+    return it; its logits match the unfolded ones to fp32 rounding. The
+    fold is in fp32; a bf16 victim casts the folded weights at each
+    convolution, as the JAX package's folded bf16 victim does. Raises
+    ``ValueError`` for a victim with no folded form. ``normalize``, as in
+    the JAX package, keeps the victim's normalization where None and
+    otherwise turns it on (with the victim's mean and std) or off."""
     if not foldable(victim.name):
         raise ValueError(f"model '{victim.name}' has no folded form")
     fold_batchnorms_(victim.net)
+    if normalize is not None and normalize != (victim.norm is not None):
+        victim.norm = Normalize(victim.mean, victim.std).to(victim.device) if normalize else None
     return victim

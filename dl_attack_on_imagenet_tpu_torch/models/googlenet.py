@@ -12,7 +12,9 @@ torchvision's weights are shaped; the max pools are the JAX package's
 are torchvision's ``ceil_mode=True`` pools at 224; no auxiliary heads (a
 victim runs in eval mode, where torchvision skips them too). The names are
 torchvision's, so its ``state_dict`` loads once ``aux1.*`` and ``aux2.*``
-are dropped (``convert.load_torch_checkpoint`` does).
+are dropped (``convert.load_torch_checkpoint`` does). ``dtype=`` is the
+compute dtype, as for the ResNets; ``transform_input`` runs in the input's
+dtype, before the first convolution casts it.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import functools
 import torch
 from torch import nn
 
-from .layers import BasicConv2d, MaxPool, TransformInput
+from .layers import (BasicConv2d, Linear, MaxPool, TransformInput, global_avg_pool, relu,
+                     set_compute_dtype)
 from .resnet import s2d_stem, stem_blocks
 
 _BN_EPS = 1e-3  # torchvision BasicConv2d: BatchNorm2d(out_channels, eps=0.001)
@@ -46,7 +49,7 @@ class GoogLeNet(nn.Module):
     """GoogLeNet over NCHW input; logits out."""
 
     def __init__(self, num_classes: int = 1000, transform_input: bool = True,
-                 stem_s2d: bool = False):
+                 stem_s2d: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stem_s2d = stem_s2d
         self.transform = TransformInput() if transform_input else None
@@ -66,8 +69,9 @@ class GoogLeNet(nn.Module):
         self.maxpool4 = MaxPool(2, 2)
         self.inception5a = Inception(832, 256, 160, 320, 32, 128, 128)
         self.inception5b = Inception(832, 384, 192, 384, 48, 128, 128)
-        self.fc = nn.Linear(1024, num_classes)
+        self.fc = Linear(1024, num_classes)
         self.num_classes = num_classes
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
         if self.transform is not None:
@@ -76,16 +80,16 @@ class GoogLeNet(nn.Module):
         if xb is None:
             x = self.maxpool1(self.conv1(x))
         else:
-            x = torch.relu(self.maxpool1(s2d_stem(xb, self.conv1.conv, self.conv1.bn)))
+            x = relu(self.maxpool1(s2d_stem(xb, self.conv1.conv, self.conv1.bn)))
         x = self.maxpool2(self.conv3(self.conv2(x)))
         x = self.maxpool3(self.inception3b(self.inception3a(x)))
         for name in ("4a", "4b", "4c", "4d", "4e"):
             x = getattr(self, f"inception{name}")(x)
         x = self.inception5b(self.inception5a(self.maxpool4(x)))
-        return self.fc(x.mean(dim=(2, 3)))
+        return self.fc(global_avg_pool(x))
 
 
 def googlenet(num_classes: int = 1000, transform_input: bool = True,
-              stem_s2d: bool = False) -> GoogLeNet:
+              stem_s2d: bool = False, dtype: torch.dtype = torch.float32) -> GoogLeNet:
     return GoogLeNet(num_classes=num_classes, transform_input=transform_input,
-                     stem_s2d=stem_s2d)
+                     stem_s2d=stem_s2d, dtype=dtype)

@@ -9,6 +9,7 @@ pooling makes the head size-agnostic: 299 is the registry size, 224 the
 CLI's (``blanket_input_size``), 75 the smallest input. No auxiliary head
 (eval-mode victims). The names are torchvision's, so its ``state_dict``
 loads once ``AuxLogits.*`` is dropped (``convert.load_torch_checkpoint``).
+``dtype=`` is the compute dtype, as for the ResNets.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BasicConv2d, TransformInput
+from .layers import (BasicConv2d, Linear, TransformInput, avg_pool, global_avg_pool, max_pool,
+                     set_compute_dtype)
 
 _conv = functools.partial(BasicConv2d, eps=1e-3)
 
@@ -43,11 +45,16 @@ class _AvgPool3x3(torch.autograd.Function):
 
 
 def _avg_pool(x: torch.Tensor) -> torch.Tensor:
-    return _AvgPool3x3.apply(x)
+    """The 3x3/s1 "SAME" average pool: :class:`_AvgPool3x3` in fp32; a bf16
+    tensor sums its taps in bf16 (``layers.avg_pool``), which uses no
+    ``avg_pool2d`` backward."""
+    if x.dtype == torch.float32:
+        return _AvgPool3x3.apply(x)
+    return avg_pool(x, 3, 1, "SAME")
 
 
 def _max_pool(x: torch.Tensor) -> torch.Tensor:
-    return F.max_pool2d(x, 3, stride=2)  # VALID
+    return max_pool(x, 3, 2, "VALID")
 
 
 class InceptionA(nn.Module):
@@ -144,7 +151,8 @@ class InceptionE(nn.Module):
 class Inception3(nn.Module):
     """Inception-v3 over NCHW input; logits out."""
 
-    def __init__(self, num_classes: int = 1000, transform_input: bool = True):
+    def __init__(self, num_classes: int = 1000, transform_input: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.transform = TransformInput() if transform_input else None
         self.Conv2d_1a_3x3 = _conv(3, 32, 3, stride=2, padding=0)
@@ -163,8 +171,9 @@ class Inception3(nn.Module):
         self.Mixed_7a = InceptionD(768)
         self.Mixed_7b = InceptionE(1280)
         self.Mixed_7c = InceptionE(2048)
-        self.fc = nn.Linear(2048, num_classes)
+        self.fc = Linear(2048, num_classes)
         self.num_classes = num_classes
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.transform is not None:
@@ -174,8 +183,9 @@ class Inception3(nn.Module):
         x = _max_pool(x)
         for name in ("5b", "5c", "5d", "6a", "6b", "6c", "6d", "6e", "7a", "7b", "7c"):
             x = getattr(self, f"Mixed_{name}")(x)
-        return self.fc(x.mean(dim=(2, 3)))
+        return self.fc(global_avg_pool(x))
 
 
-def inception_v3(num_classes: int = 1000, transform_input: bool = True) -> Inception3:
-    return Inception3(num_classes=num_classes, transform_input=transform_input)
+def inception_v3(num_classes: int = 1000, transform_input: bool = True,
+                 dtype: torch.dtype = torch.float32) -> Inception3:
+    return Inception3(num_classes=num_classes, transform_input=transform_input, dtype=dtype)

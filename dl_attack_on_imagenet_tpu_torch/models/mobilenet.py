@@ -2,16 +2,18 @@
 
 Port of ``dl_attack_on_imagenet_tpu/models/mobilenet.py``: inverted
 residuals with depthwise ``groups=hidden`` convolutions, BatchNorm eps
-1e-5, ReLU6 (the JAX package's ReLU then ``min(., 6)``, one ``F.relu6``
-here). The names are torchvision's (``features.1.conv.0.0``,
-``classifier.1``), so a torchvision ``state_dict`` loads as it is.
+1e-5, ReLU6 (the JAX package's ReLU then ``min(., 6)``, here too). The
+names are torchvision's (``features.1.conv.0.0``, ``classifier.1``), so a
+torchvision ``state_dict`` loads as it is. ``dtype=`` is the compute dtype,
+as for the ResNets.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from .layers import Conv2d, Linear, global_avg_pool, relu, set_compute_dtype
 
 # (expand_ratio, channels, num_blocks, stride)
 _V2_CFG = (
@@ -34,15 +36,18 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
 
 class ConvBNReLU6(nn.Sequential):
     """torchvision's ``Conv2dNormActivation``: conv (``0``, symmetric
-    ``k // 2`` padding) -> BatchNorm (``1``) -> ReLU6."""
+    ``k // 2`` padding) -> BatchNorm (``1``) -> ReLU6, the JAX package's
+    ReLU capped by ``minimum(y, 6)`` (an exact tie at 6 splits its
+    gradient, as ``jnp.minimum``'s does)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, groups: int = 1):
-        super().__init__(nn.Conv2d(cin, cout, kernel, stride, kernel // 2, groups=groups,
-                                   bias=False),
+        super().__init__(Conv2d(cin, cout, kernel, stride, kernel // 2, groups=groups,
+                                bias=False),
                          nn.BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu6(super().forward(x))
+        y = relu(super().forward(x))
+        return torch.minimum(y, torch.full((), 6.0, dtype=y.dtype, device=y.device))
 
 
 class InvertedResidual(nn.Module):
@@ -51,7 +56,7 @@ class InvertedResidual(nn.Module):
         hidden = cin * expand_ratio
         layers = [ConvBNReLU6(cin, hidden, 1)] if expand_ratio != 1 else []
         layers += [ConvBNReLU6(hidden, hidden, 3, stride, groups=hidden),  # depthwise
-                   nn.Conv2d(hidden, cout, 1, bias=False),  # linear projection
+                   Conv2d(hidden, cout, 1, bias=False),  # linear projection
                    nn.BatchNorm2d(cout)]
         self.conv = nn.Sequential(*layers)
         self.use_res_connect = stride == 1 and cin == cout
@@ -64,7 +69,8 @@ class InvertedResidual(nn.Module):
 class MobileNetV2(nn.Module):
     """MobileNetV2 over NCHW input; logits out."""
 
-    def __init__(self, num_classes: int = 1000, width_mult: float = 1.0):
+    def __init__(self, num_classes: int = 1000, width_mult: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cin = _make_divisible(32 * width_mult)
         layers = [ConvBNReLU6(3, cin, 3, 2)]
@@ -78,12 +84,13 @@ class MobileNetV2(nn.Module):
         self.features = nn.Sequential(*layers)
         # torchvision's classifier is (Dropout, Linear); the dropout is the
         # identity in eval mode, the only mode of a victim.
-        self.classifier = nn.Sequential(nn.Identity(), nn.Linear(last, num_classes))
+        self.classifier = nn.Sequential(nn.Identity(), Linear(last, num_classes))
         self.num_classes = num_classes
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.classifier(self.features(x).mean(dim=(2, 3)))
+        return self.classifier(global_avg_pool(self.features(x)))
 
 
-def mobilenet_v2(num_classes: int = 1000) -> MobileNetV2:
-    return MobileNetV2(num_classes=num_classes)
+def mobilenet_v2(num_classes: int = 1000, dtype: torch.dtype = torch.float32) -> MobileNetV2:
+    return MobileNetV2(num_classes=num_classes, dtype=dtype)

@@ -17,6 +17,11 @@ the S2D stem after it, as the JAX package does (the ReLU then runs at a
 quarter of the size). Both orders give the same values and, since the pool
 routes a gradient to its window's maximum and a ReLU of a non-positive
 maximum passes none, the same input gradients.
+
+``dtype=torch.bfloat16`` computes every convolution and the classifier in
+bf16 over fp32 parameters, and each BatchNorm in fp32 on the bf16
+activation, rounding its result to bf16, as the JAX package's
+``dtype=jnp.bfloat16`` does (``layers``); the logits are bf16.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import space_to_depth_nchw
+from .layers import (Conv2d, Linear, MaxPool, ReLU, global_avg_pool, relu, set_compute_dtype,
+                     space_to_depth_nchw)
 
 
 def _blocked_kernel(weight: torch.Tensor) -> torch.Tensor:
@@ -48,7 +54,10 @@ def s2d_stem(xb: torch.Tensor, conv: nn.Conv2d, bn: nn.Module) -> torch.Tensor:
     NCHW view of x. The blocked kernel is built from ``conv.weight`` once
     per weight version (a load or a fold makes a new one) and kept on the
     convolution. The padding is ((2, 1), (2, 1)) in blocks, which
-    ``F.conv2d`` cannot express, so it is applied first."""
+    ``F.conv2d`` cannot express, so it is applied first. With the
+    convolution's ``compute_dtype`` set, the blocks and the kernel are cast
+    to it and a folded bias is added after the convolution, as in
+    ``layers.Conv2d``."""
     w = conv.weight
     key = (w.data_ptr(), w._version, w.device, w.dtype)
     cached = conv.__dict__.get("_s2d_kernel")
@@ -58,7 +67,13 @@ def s2d_stem(xb: torch.Tensor, conv: nn.Conv2d, bn: nn.Module) -> torch.Tensor:
         kb = _blocked_kernel(w)
         if not w.requires_grad:
             conv.__dict__["_s2d_kernel"] = (key, kb)
-    return bn(F.conv2d(F.pad(xb, (2, 1, 2, 1)), kb, conv.bias))
+    dt = getattr(conv, "compute_dtype", None)
+    if dt is None:
+        return bn(F.conv2d(F.pad(xb, (2, 1, 2, 1)), kb, conv.bias))
+    y = F.conv2d(F.pad(xb.to(dt), (2, 1, 2, 1)), kb.to(dt))
+    if conv.bias is not None:
+        y = y + conv.bias.to(dt).reshape(-1, 1, 1)
+    return bn(y)
 
 
 def stem_blocks(x: torch.Tensor, stem_s2d: bool, blocked_input: bool):
@@ -72,8 +87,8 @@ def stem_blocks(x: torch.Tensor, stem_s2d: bool, blocked_input: bool):
     return None
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
 
 
 class BasicBlock(nn.Module):
@@ -85,7 +100,7 @@ class BasicBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3)
         self.bn2 = nn.BatchNorm2d(planes)
-        self.relu = nn.ReLU()
+        self.relu = ReLU()
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(_conv(inplanes, planes, 1, stride),
@@ -110,7 +125,7 @@ class Bottleneck(nn.Module):
         self.bn2 = nn.BatchNorm2d(planes)
         self.conv3 = _conv(planes, out, 1)
         self.bn3 = nn.BatchNorm2d(out)
-        self.relu = nn.ReLU()
+        self.relu = ReLU()
         self.downsample = None
         if stride != 1 or inplanes != out:
             self.downsample = nn.Sequential(_conv(inplanes, out, 1, stride),
@@ -131,13 +146,13 @@ class ResNet(nn.Module):
     """ResNet over NCHW input; logits out."""
 
     def __init__(self, stage_sizes: List[int], block: Block, num_classes: int = 1000,
-                 stem_s2d: bool = False):
+                 stem_s2d: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stem_s2d = stem_s2d
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
-        self.relu = nn.ReLU()
-        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.relu = ReLU()
+        self.maxpool = MaxPool(3, 2, ((1, 1), (1, 1)))
         inplanes = 64
         for i, size in enumerate(stage_sizes):
             planes = 64 * 2**i
@@ -148,28 +163,31 @@ class ResNet(nn.Module):
                 inplanes = planes * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
-        self.avgpool = nn.AdaptiveAvgPool2d(1)
-        self.fc = nn.Linear(inplanes, num_classes)
+        self.fc = Linear(inplanes, num_classes)
         self.num_classes = num_classes
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
         xb = stem_blocks(x, self.stem_s2d, blocked_input)
         if xb is None:
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         else:
-            x = self.relu(self.maxpool(s2d_stem(xb, self.conv1, self.bn1)))
+            x = relu(self.maxpool(s2d_stem(xb, self.conv1, self.bn1)))
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
-        return self.fc(torch.flatten(self.avgpool(x), 1))
+        return self.fc(global_avg_pool(x))
 
 
-def resnet18(num_classes: int = 1000, stem_s2d: bool = False) -> ResNet:
-    return ResNet([2, 2, 2, 2], BasicBlock, num_classes, stem_s2d)
+def resnet18(num_classes: int = 1000, stem_s2d: bool = False,
+             dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet([2, 2, 2, 2], BasicBlock, num_classes, stem_s2d, dtype)
 
 
-def resnet34(num_classes: int = 1000, stem_s2d: bool = False) -> ResNet:
-    return ResNet([3, 4, 6, 3], BasicBlock, num_classes, stem_s2d)
+def resnet34(num_classes: int = 1000, stem_s2d: bool = False,
+             dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet([3, 4, 6, 3], BasicBlock, num_classes, stem_s2d, dtype)
 
 
-def resnet50(num_classes: int = 1000, stem_s2d: bool = False) -> ResNet:
-    return ResNet([3, 4, 6, 3], Bottleneck, num_classes, stem_s2d)
+def resnet50(num_classes: int = 1000, stem_s2d: bool = False,
+             dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet([3, 4, 6, 3], Bottleneck, num_classes, stem_s2d, dtype)

@@ -7,7 +7,8 @@ average pool whose window and stride are ``floor(h / 7)`` (not
 torchvision's adaptive pool), so the classifier's input width follows the
 input size, and the module is built for one ``input_size``. The names are
 torchvision's (``features.N``, ``classifier.0/3/6``); ``hidden`` is the
-classifier's width (4096 in torchvision).
+classifier's width (4096 in torchvision). ``dtype=`` is the compute
+dtype, as for the ResNets.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from .layers import Conv2d, Linear, MaxPool, ReLU, avg_pool, set_compute_dtype
 
 CFGS = {
     "vgg11": (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"),
@@ -31,15 +33,15 @@ class VGG(nn.Module):
     """VGG over NCHW input of side ``input_size``; logits out."""
 
     def __init__(self, cfg: Sequence, num_classes: int = 1000, hidden: int = 4096,
-                 input_size: int = 224):
+                 input_size: int = 224, dtype: torch.dtype = torch.float32):
         super().__init__()
         layers, cin, side = [], 3, input_size
         for item in cfg:
             if item == "M":
-                layers.append(nn.MaxPool2d(2, 2))
+                layers.append(MaxPool(2, 2, "VALID"))
                 side //= 2
             else:
-                layers += [nn.Conv2d(cin, item, 3, padding=1), nn.ReLU()]
+                layers += [Conv2d(cin, item, 3, padding=1), ReLU()]
                 cin = item
         self.features = nn.Sequential(*layers)
         self.pool = 1 if side == 7 else max(side // 7, 1)
@@ -47,25 +49,29 @@ class VGG(nn.Module):
         # torchvision's (Linear, ReLU, Dropout) x 2, Linear: the dropouts are
         # the identity in eval mode, the only mode of a victim.
         self.classifier = nn.Sequential(
-            nn.Linear(cin * side * side, hidden), nn.ReLU(), nn.Identity(),
-            nn.Linear(hidden, hidden), nn.ReLU(), nn.Identity(),
-            nn.Linear(hidden, num_classes))
+            Linear(cin * side * side, hidden), ReLU(), nn.Identity(),
+            Linear(hidden, hidden), ReLU(), nn.Identity(),
+            Linear(hidden, num_classes))
         self.num_classes = num_classes
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.features(x)
         if self.pool > 1:
-            x = F.avg_pool2d(x, self.pool, self.pool)
+            x = avg_pool(x, self.pool, self.pool)
         return self.classifier(torch.flatten(x, 1))  # (C, H, W) order
 
 
-def vgg11(num_classes: int = 1000, hidden: int = 4096, input_size: int = 224) -> VGG:
-    return VGG(CFGS["vgg11"], num_classes, hidden, input_size)
+def vgg11(num_classes: int = 1000, hidden: int = 4096, input_size: int = 224,
+          dtype: torch.dtype = torch.float32) -> VGG:
+    return VGG(CFGS["vgg11"], num_classes, hidden, input_size, dtype)
 
 
-def vgg16(num_classes: int = 1000, hidden: int = 4096, input_size: int = 224) -> VGG:
-    return VGG(CFGS["vgg16"], num_classes, hidden, input_size)
+def vgg16(num_classes: int = 1000, hidden: int = 4096, input_size: int = 224,
+          dtype: torch.dtype = torch.float32) -> VGG:
+    return VGG(CFGS["vgg16"], num_classes, hidden, input_size, dtype)
 
 
-def vgg19(num_classes: int = 1000, hidden: int = 4096, input_size: int = 224) -> VGG:
-    return VGG(CFGS["vgg19"], num_classes, hidden, input_size)
+def vgg19(num_classes: int = 1000, hidden: int = 4096, input_size: int = 224,
+          dtype: torch.dtype = torch.float32) -> VGG:
+    return VGG(CFGS["vgg19"], num_classes, hidden, input_size, dtype)

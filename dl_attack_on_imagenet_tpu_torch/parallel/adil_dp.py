@@ -257,6 +257,7 @@ def learn_dictionary_distributed(
     ckpt_key: Optional[dict] = None,
     resume: bool = True,
     blocked="auto",
+    ckpt_sharded="auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Data-parallel dictionary learning. Returns (D in its (K, H, W, C)
     presentation shape, v of the real rows, history), the same on every
@@ -279,7 +280,17 @@ def learn_dictionary_distributed(
     appended), and D put back in pixel order at the end. The history has
     the per-epoch ``loss`` and ``fooling_rate``, the last ``val_fooling``,
     ``blocked`` (whether it ran blocked) and the epochs' ``timing``.
+
+    ``ckpt_sharded`` is the JAX package's choice of checkpoint: "auto" (the
+    default) and False are the rank-0 msgpack checkpoint above, which the
+    all-reduce gather makes for any number of processes; True, the JAX
+    package's orbax collective save, raises ``NotImplementedError``.
     """
+    if ckpt_sharded != "auto" and ckpt_sharded:
+        raise NotImplementedError(
+            "ckpt_sharded=True asks for the JAX package's orbax sharded checkpoint, which "
+            "only orbax (a JAX library) reads or writes; use ckpt_sharded=\"auto\" or False, "
+            "the rank-0 msgpack checkpoint that every rank restores")
     images_np, _ = dataset.as_arrays()
     n = images_np.shape[0]
     image_shape = tuple(dataset.image_shape)

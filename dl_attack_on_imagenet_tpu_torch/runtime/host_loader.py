@@ -154,15 +154,26 @@ _lock = threading.Lock()
 build_error: Optional[str] = None  # why get_runtime() returned None, if it did
 
 
-def get_runtime() -> Optional[NativeRuntime]:
+def _library(build_it: bool) -> Path:
+    if build_it:
+        return build()
+    path = library_path()
+    if not path.exists():
+        raise RuntimeError(f"{path} is not built, and get_runtime(build=False) builds nothing")
+    return path
+
+
+def get_runtime(build: bool = True) -> Optional[NativeRuntime]:
     """The native runtime, built on first use; None where it cannot be built
-    or loaded (the reason is kept in ``build_error``)."""
+    or loaded (the reason is kept in ``build_error``). ``build=False`` only
+    loads a library built before, as in the JAX package. The first call
+    decides, and later calls return its result."""
     global _runtime, _tried, build_error
     with _lock:
         if not _tried:
             _tried = True
             try:
-                _runtime = NativeRuntime(ctypes.CDLL(str(build())))
+                _runtime = NativeRuntime(ctypes.CDLL(str(_library(build))))
             except (RuntimeError, OSError, subprocess.TimeoutExpired) as e:
                 build_error = str(e)
         return _runtime

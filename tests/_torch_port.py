@@ -16,6 +16,12 @@ from dl_attack_on_imagenet_tpu.models.convert import jax_tree_to_numpy
 from dl_attack_on_imagenet_tpu_torch.models import create_model
 from dl_attack_on_imagenet_tpu_torch.models.convert import state_dict_from_flax
 
+# The suite runs in several worker processes on one host. Torch sizes its
+# CPU thread pool for the whole host in each of them, and the pools then
+# spin against each other: beside five other workers a 6.5 s CLI test took
+# 200 s. The port's tests run on one thread a process.
+torch.set_num_threads(1)
+
 
 def _randomize_bn(params, stats, rs: np.random.RandomState) -> None:
     """Give every BatchNorm random statistics and affine terms, in place."""
@@ -70,3 +76,18 @@ def call_key(seed: int = 0, call: int = 1):
     """The key a JAX attack class folds from ``PRNGKey(seed)`` on its
     ``call``-th call."""
     return jax.random.fold_in(jax.random.PRNGKey(seed), call)
+
+
+def strict_jit(fn, *args):
+    """``jax.jit(fn)`` compiled for ``args`` with XLA's excess precision
+    off, so that every bf16 result is rounded where the code rounds it (by
+    default XLA keeps fp32 between bf16 casts, several percent from the
+    code's own rounding in a bf16 victim's gradient)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))

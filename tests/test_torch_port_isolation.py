@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(script):
         code += "import chip_smoke\n"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120,
-                         env={**os.environ, "PYTHONPATH": REPO})
+                         env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 30  # every module was imported
 
@@ -76,7 +76,7 @@ def test_cli_path_runs_without_pil_and_matplotlib(tmp_path):
     # single-image attack without a JPEG or a figure.
     out = subprocess.run([sys.executable, "-c", _CLI_WITHOUT_PIL, str(tmp_path)], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
-                         env={**os.environ, "PYTHONPATH": REPO})
+                         env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[-2].endswith("(1, 32, 32, 3)")
 
