@@ -62,7 +62,19 @@ phase, and exits non-zero if any phase fails:
    two ranks on one card): two spawned ranks (``chip_smoke.py --dp-rank R
    DIR DEVICE``) on the tiny victim at 32x32, K=100, 32 images, b16, 2
    epochs, both on ``cuda:0``; both ranks' D and v identical, and within
-   1e-5 of the replay on the card;
+   1e-5 of the replay on the card; then each rank learns again with
+   ``ckpt_sharded=True`` (the collective ``torch.distributed.checkpoint``
+   save), killed just after its first checkpoint and resumed, equal to its
+   first run bit for bit, with the save and restore walls and the bytes;
+   then, at world size 1 over NCCL, learns with ``ckpt_sharded=True`` on
+   ResNet-50 at 224x224, K=100, 128 images, b64, 2 epochs with a checkpoint
+   after each: whole, and killed just after its first checkpoint and
+   resumed (deterministic cuDNN), D, v and the history bit-equal, with each
+   save's and the restore's wall and the directory's bytes beside the
+   card's name and power limit; and in both DP settings, v and its
+   moments at the full ImageNet train set's 1,281,167 x 100 rows (1.5 GB)
+   through both checkpoints, the sharded one and the rank-0 gather and
+   msgpack file, each timed and restored bit-equal;
 12. runs the experiment of phase 8 once more with ``--distributed
    --mixed-precision``;
 13. runs the universal baselines on ResNet-50 at 224x224 at the JAX
@@ -182,6 +194,9 @@ SMALL_S2D = (("densenet121", 32), ("googlenet", 32))
 # The zoo phase's victims beside the main path's ResNet-50, DenseNet-121
 # and MobileNetV2.
 ZOO = ("densenet169", "googlenet", "inception_v3", "vgg16", "vit_b16")
+# The card's name and power limit as nvidia-smi gives them, set by main and
+# printed beside the sharded checkpoint's walls.
+CARD = "no card"
 
 
 def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1153,13 +1168,239 @@ def dp_world_one(dev, model: str = "resnet50", size: int = 224, n: int = 128, b:
     return launches
 
 
+class _Killed(Exception):
+    pass
+
+
+def _timed_cache(root: str):
+    """An ``ArtifactCache`` at ``root`` that keeps the wall of each sharded
+    save and restore and the bytes of the directory that a save leaves."""
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    class TimedCache(ArtifactCache):
+        def __init__(self, root):
+            super().__init__(root)
+            self.saves, self.restores, self.bytes = [], [], 0
+
+        def save_sharded(self, tree, prefix, **hyper):
+            sync()
+            t0 = time.perf_counter()
+            p = super().save_sharded(tree, prefix, **hyper)
+            self.saves.append(time.perf_counter() - t0)
+            self.bytes = sum(os.path.getsize(os.path.join(top, f))
+                             for top, _, files in os.walk(p) for f in files)
+            return p
+
+        def load_sharded(self, template, prefix, **hyper):
+            sync()
+            t0 = time.perf_counter()
+            out = super().load_sharded(template, prefix, **hyper)
+            sync()
+            self.restores.append(time.perf_counter() - t0)
+            return out
+
+    return TimedCache(root)
+
+
+def _kill_and_resume(learn, cache):
+    """``learn(cache)`` killed just after its first sharded checkpoint (on
+    every rank, so that none waits in a collective), then run again to
+    resume from it; returns the resumed run's (D, v, history)."""
+    from dl_attack_on_imagenet_tpu_torch.parallel import adil_dp
+
+    real = adil_dp._ckpt_save_sharded
+
+    def save_then_kill(*args):
+        real(*args)
+        raise _Killed
+
+    adil_dp._ckpt_save_sharded = save_then_kill
+    try:
+        learn(cache)
+        raise AssertionError("sharded checkpoint: the run was not killed")
+    except _Killed:
+        pass
+    finally:
+        adil_dp._ckpt_save_sharded = real
+    if not cache.saves:
+        raise AssertionError("sharded checkpoint: the killed run left no checkpoint")
+    return learn(cache)
+
+
+def _same_run(a, b) -> bool:
+    """Two runs' (D, v, history) bit for bit."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and a[2]["loss"] == b[2]["loss"] and a[2]["fooling_rate"] == b[2]["fooling_rate"])
+
+
+# The rows of the full ImageNet train set, the codes' size at K=100.
+IMAGENET_TRAIN = 1_281_167
+
+
+def codes_checkpoint_walls(dev, root: str, n: int = IMAGENET_TRAIN, k: int = 100) -> dict:
+    """Both DP checkpoints of v and its two moments alone at ``n`` rows,
+    timed on this rank; every rank of the default group calls it. The
+    sharded one: ``save_sharded`` of three ``Shard(0)`` DTensors of this
+    rank's rows, and ``load_sharded`` back into zeroed rows. The rank-0
+    one, as ``learn_dictionary_distributed(ckpt_sharded=False)`` makes it:
+    the all-reduce gather of the three onto every rank and rank 0's msgpack
+    save, then each rank's load of the file and copy of its rows to the
+    card. Both restores are held bit-equal to the rows. Returns the walls
+    (s, each ending with every rank done) and the bytes on disk."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from dl_attack_on_imagenet_tpu_torch.parallel import data_mesh
+    from dl_attack_on_imagenet_tpu_torch.parallel.adil_dp import _barrier, _gather_rows
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    mesh = data_mesh()
+    world, rank, group = mesh.size(), dist.get_rank(), mesh.get_group("data")
+    n_local = -(-n // world)
+    g = torch.Generator(device=dev).manual_seed(rank)
+    rows = {name: torch.rand((n_local, k), generator=g, device=dev)
+            for name in ("v", "v_mu", "v_nu")}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def as_dtensors(tensors):
+        return {name: DTensor.from_local(t, mesh, [Shard(0)], run_check=False)
+                for name, t in tensors.items()}
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        _barrier(dev, group)
+        return time.perf_counter() - t0, out
+
+    cache = ArtifactCache(root)
+    out = {"rows": n, "world": world}
+    out["sharded_save"], p = timed(lambda: cache.save_sharded(as_dtensors(rows), "codes"))
+    out["sharded_bytes"] = sum(os.path.getsize(os.path.join(top, f))
+                               for top, _, files in os.walk(p) for f in files)
+    back = {name: torch.zeros_like(t) for name, t in rows.items()}
+    out["sharded_restore"], _ = timed(lambda: cache.load_sharded(as_dtensors(back), "codes"))
+    out["sharded_equal"] = all(torch.equal(back[name], rows[name]) for name in rows)
+    cache.remove_sharded("codes")
+    del back
+
+    def gather_and_write():
+        whole = {name: _gather_rows(t, world, rank, group) for name, t in rows.items()}
+        return cache.save(whole, "codes") if rank == 0 else None
+
+    out["msgpack_save"], _ = timed(gather_and_write)
+    out["msgpack_bytes"] = os.path.getsize(cache.path("codes"))
+
+    def read_own_rows():
+        payload = cache.load("codes")
+        return {name: torch.as_tensor(payload[name][rank * n_local:(rank + 1) * n_local]).to(dev)
+                for name in rows}
+
+    out["msgpack_restore"], back = timed(read_own_rows)
+    out["msgpack_equal"] = all(torch.equal(back[name], rows[name]) for name in rows)
+    _barrier(dev, group)
+    if rank == 0:
+        cache.remove("codes")
+    return out
+
+
+def _print_codes_walls(label: str, w) -> None:
+    print(f"{label} codes checkpoint, v and its moments at {int(w['rows'])}x100 fp32 over "
+          f"{int(w['world'])} rank(s) ({CARD}): sharded save {float(w['sharded_save']):.4f} s, "
+          f"restore {float(w['sharded_restore']):.4f} s, {int(w['sharded_bytes'])} bytes, "
+          f"bit-equal {bool(w['sharded_equal'])}; rank-0 gather and msgpack save "
+          f"{float(w['msgpack_save']):.4f} s, each rank's load {float(w['msgpack_restore']):.4f} "
+          f"s, {int(w['msgpack_bytes'])} bytes, bit-equal {bool(w['msgpack_equal'])}")
+    if not (w["sharded_equal"] and w["msgpack_equal"]):
+        raise AssertionError(f"{label} codes checkpoint: a restore differs from the rows")
+
+
+def dp_sharded(dev, model: str = "resnet50", size: int = 224, n: int = 128, b: int = 64,
+               k: int = 100, epochs: int = 2, codes_kw=None) -> int:
+    """``learn_dictionary_distributed(ckpt_sharded=True)`` at world size 1
+    over NCCL on ResNet-50 at 224x224, K=100, 128 images at b64, with a
+    checkpoint each epoch: whole, and killed just after its first
+    checkpoint, then resumed; the resumed D, v and history equal the whole
+    run's bit for bit (deterministic cuDNN). Prints the sharded saves' and
+    the restore's walls and the directory's bytes (D and its moments, 3 x K
+    x H*W*C fp32, and v and its moments); then both checkpoints of the
+    full ImageNet train set's codes (:func:`codes_checkpoint_walls`).
+    Returns the fused_adamw_project launches. (The keyword arguments shrink
+    the run for a rehearsal on the CPU.)"""
+    codes_kw = codes_kw or {}
+    import numpy as np
+    import torch.distributed as dist
+
+    from dl_attack_on_imagenet_tpu_torch.attacks.adil_core import AdilConfig
+    from dl_attack_on_imagenet_tpu_torch.data import ArrayDataset
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project
+    from dl_attack_on_imagenet_tpu_torch.parallel import (
+        auto_initialize, data_mesh, learn_dictionary_distributed)
+
+    auto_initialize(device=dev)
+    mesh = data_mesh()
+    victim = create_model(model, input_size=size, device=dev, seed=0)
+    data = ArrayDataset(np.random.default_rng(2).random((n, size, size, 3), dtype=np.float32),
+                        np.zeros(n))
+    cfg = AdilConfig(eps=EPS, n_atoms=k, loss="logits", batch_size=b, steps=epochs)
+
+    def learn(cache):
+        return learn_dictionary_distributed(victim, data, cfg, mesh, seed=0, checkpoint_every=1,
+                                            cache=cache, ckpt_sharded=True)
+
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as root, _deterministic_cudnn():
+        caches = {name: _timed_cache(f"{root}/{name}") for name in ("whole", "resumed")}
+        for name, run in (("whole", learn), ("resumed", lambda c: _kill_and_resume(learn, c))):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            runs[name] = run(caches[name])
+            torch.cuda.synchronize()
+            launches[name] = fused_adamw_project.launches
+            print(f"  {name}: wall {time.perf_counter() - t0:.2f} s, fused_adamw_project launches "
+                  f"{launches[name]}, loss {runs[name][2]['loss']}")
+        left = [c.exists_sharded("ImageNet", model=victim.name, kind="dp_train_state_torch")
+                for c in caches.values()]
+        print(f"dp sharded checkpoint on {model} at {size}x{size}, K={k}, {n} images at b{b}, "
+              f"world size 1 over {dist.get_backend()} ({CARD}): saves "
+              f"{[round(w, 4) for w in caches['whole'].saves]} s (whole) and {[round(w, 4) for w in caches['resumed'].saves]} s (killed, "
+              f"resumed), restore {[round(w, 4) for w in caches['resumed'].restores]} s, directory "
+              f"{caches['whole'].bytes} bytes (D and its moments {3 * k * size * size * 3 * 4} "
+              f"bytes)")
+        codes = codes_checkpoint_walls(dev, f"{root}/codes", **codes_kw)
+    _print_codes_walls("dp sharded checkpoint, world size 1:", codes)
+    same = _same_run(runs["whole"], runs["resumed"])
+    print(f"  resumed against whole: D, v and history bit-equal {same}")
+    want = epochs * 2 * -(-n // b)
+    if not same:
+        raise AssertionError("dp sharded checkpoint: the resumed run differs from the whole one")
+    if any(left) or len(caches["resumed"].restores) != 1:
+        raise AssertionError(f"dp sharded checkpoint: left {left}, restores "
+                             f"{caches['resumed'].restores}")
+    if launches != {"whole": want, "resumed": want}:
+        raise AssertionError(f"dp sharded checkpoint: launches {launches}, the path makes {want}")
+    _check_trained("dp sharded checkpoint", runs["whole"][0].reshape(k, -1), runs["whole"][1], EPS)
+    return launches["whole"] + launches["resumed"]
+
+
 DP_RANKS = dict(model="tiny", size=32, n=32, b=16, k=100, epochs=2)
 
 
-def dp_rank_main(rank: int, root: str, device: str) -> None:
+def dp_rank_main(rank: int, root: str, device: str, codes_rows: int = IMAGENET_TRAIN) -> None:
     """One rank of :func:`dp_two_ranks`: gloo on ``device`` (both ranks on
-    one card), the DP learning of ``DP_RANKS``, its result written to
-    ``root/rank<rank>.npz``."""
+    one card), the DP learning of ``DP_RANKS``, then its sharded-checkpoint
+    run killed after the first checkpoint and resumed, the results written
+    to ``root/rank<rank>.npz``."""
     import numpy as np
     import torch.distributed as dist
 
@@ -1179,24 +1420,42 @@ def dp_rank_main(rank: int, root: str, device: str) -> None:
     victim = create_model(c["model"], input_size=c["size"], device=device, seed=0)
     images = np.random.default_rng(5).random((c["n"], c["size"], c["size"], 3), dtype=np.float32)
     cfg = AdilConfig(eps=EPS, n_atoms=c["k"], loss="logits", batch_size=c["b"], steps=c["epochs"])
+    data = ArrayDataset(images, np.zeros(c["n"]))
     _zero_counts()
     t0 = time.perf_counter()
-    d, v, history = learn_dictionary_distributed(
-        victim, ArrayDataset(images, np.zeros(c["n"])), cfg, mesh, seed=0)
+    d, v, history = learn_dictionary_distributed(victim, data, cfg, mesh, seed=0)
     if d.is_cuda:
         torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, fused_adamw_project.launches
+
+    def learn(cache):
+        return learn_dictionary_distributed(victim, data, cfg, mesh, seed=0, checkpoint_every=1,
+                                            cache=cache, ckpt_sharded=True)
+
+    cache = _timed_cache(f"{root}/sharded")
+    _zero_counts()
+    resumed = _kill_and_resume(learn, cache)
     np.savez(f"{root}/rank{rank}.npz", d=d.cpu().numpy(), v=v.cpu().numpy(),
-             loss=np.asarray(history["loss"]), wall=time.perf_counter() - t0,
-             launches=fused_adamw_project.launches, ok=health["ok"],
-             backend=dist.get_backend(), device=str(d.device))
+             loss=np.asarray(history["loss"]), wall=wall, launches=launches, ok=health["ok"],
+             backend=dist.get_backend(), device=str(d.device),
+             sharded_same=_same_run((d, v, history), resumed),
+             sharded_launches=fused_adamw_project.launches, sharded_saves=cache.saves,
+             sharded_restores=cache.restores, sharded_bytes=cache.bytes,
+             sharded_left=cache.exists_sharded("ImageNet", model=victim.name,
+                                               kind="dp_train_state_torch"),
+             **{f"codes_{key}": value for key, value in codes_checkpoint_walls(
+                 torch.device(device), f"{root}/codes", n=codes_rows).items()})
     dist.destroy_process_group()
 
 
-def dp_two_ranks(dev, timeout: int = 300) -> int:
+def dp_two_ranks(dev, timeout: int = 300, codes_rows: int = IMAGENET_TRAIN) -> int:
     """Two ranks on the one card over gloo, spawned as ``chip_smoke.py
     --dp-rank R DIR DEVICE``, both on ``dev``: both ranks' D and v
-    identical, and within 1e-5 of the serial replay on ``dev``. Returns both
-    ranks' fused_adamw_project launches."""
+    identical, and within 1e-5 of the serial replay on ``dev``; each rank's
+    sharded-checkpoint run, killed and resumed, equal to its whole run bit
+    for bit; then both checkpoints of ``codes_rows`` rows of codes over the
+    two ranks (:func:`codes_checkpoint_walls`). Returns both ranks'
+    fused_adamw_project launches, both runs."""
     import numpy as np
 
     from dl_attack_on_imagenet_tpu_torch.attacks.adil_core import AdilConfig
@@ -1212,7 +1471,8 @@ def dp_two_ranks(dev, timeout: int = 300) -> int:
                "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
         t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
-                                   str(r), root, str(dev)], env={**env, "RANK": str(r)})
+                                   str(r), root, str(dev), str(codes_rows)],
+                                  env={**env, "RANK": str(r)})
                  for r in range(2)]
         try:
             codes = [p.wait(timeout=timeout) for p in procs]
@@ -1227,11 +1487,24 @@ def dp_two_ranks(dev, timeout: int = 300) -> int:
         print(f"dp 2 ranks, rank {r}: backend {out['backend']}, {out['device']}, check_mesh ok "
               f"{bool(out['ok'])}, learn {float(out['wall']):.2f} s, fused_adamw_project "
               f"launches {int(out['launches'])}, loss {out['loss'].tolist()}")
+        print(f"  rank {r} sharded checkpoint ({CARD}): killed and resumed equal to the "
+              f"whole run {bool(out['sharded_same'])}, fused_adamw_project launches "
+              f"{int(out['sharded_launches'])}, saves {out['sharded_saves'].round(4).tolist()} s, "
+              f"restore {out['sharded_restores'].round(4).tolist()} s, directory "
+              f"{int(out['sharded_bytes'])} bytes")
+        _print_codes_walls(f"dp 2 ranks, rank {r}:", {key[6:]: value for key, value in
+                                                      out.items() if key.startswith("codes_")})
     print(f"  both ranks, spawn to exit: {wall:.1f} s")
     same = all(np.array_equal(ranks[0][key], ranks[1][key]) for key in ("d", "v", "loss"))
     want = 2 * c["epochs"] * -(-(c["n"] // 2) // (c["b"] // 2))
     if not (same and all(bool(out["ok"]) for out in ranks)):
         raise AssertionError("dp 2 ranks: the ranks disagree or the mesh is not healthy")
+    if not all(bool(out["sharded_same"]) and not bool(out["sharded_left"])
+               and out["sharded_restores"].size == 1 for out in ranks):
+        raise AssertionError("dp 2 ranks: the sharded kill-and-resume differs from the whole run "
+                             "or left its checkpoint")
+    if [int(out["sharded_launches"]) for out in ranks] != [want, want]:
+        raise AssertionError(f"dp 2 ranks: sharded launches, the path makes {want} a rank")
     victim = create_model(c["model"], input_size=c["size"], device=dev, seed=0)
     images = np.random.default_rng(5).random((c["n"], c["size"], c["size"], 3), dtype=np.float32)
     cfg = AdilConfig(eps=EPS, n_atoms=c["k"], loss="logits", batch_size=c["b"], steps=c["epochs"])
@@ -1246,7 +1519,7 @@ def dp_two_ranks(dev, timeout: int = 300) -> int:
         raise AssertionError(f"dp 2 ranks disagree with the replay: {err}")
     if [int(out["launches"]) for out in ranks] != [want, want]:
         raise AssertionError(f"dp 2 ranks: launches, the path makes {want} a rank")
-    return 2 * want
+    return 4 * want
 
 
 def check_baselines_against_cpu(dev) -> None:
@@ -2949,6 +3222,8 @@ def main() -> None:
                           "--format=csv,noheader"], check=True, capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     print(smi)
+    global CARD
+    CARD = smi
     dev = torch.device("cuda", 0)
     _set_precision()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2993,6 +3268,7 @@ def main() -> None:
     kernels[1]["launches"] += adamw
     kernels[1]["launches"] += timed("dp world size 1", dp_world_one, dev)
     kernels[1]["launches"] += timed("dp 2 ranks", dp_two_ranks, dev)
+    kernels[1]["launches"] += timed("dp sharded checkpoint", dp_sharded, dev)
     with tempfile.TemporaryDirectory() as root:
         perturb, adamw = timed("demo experiment distributed mixed", demo_experiment, dev, root,
                                extra=("--distributed", "--mixed-precision"))
@@ -3039,6 +3315,6 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
-        dp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        dp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5]))
     else:
         main()

@@ -15,6 +15,10 @@ Port of ``dl_attack_on_imagenet_tpu/parallel/adil_dp.py``, over
   leaves the loop at the same epoch. (The reference gates its loop on rank
   0, which leaves the other ranks waiting in a collective.)
 
+The checkpoint is either the rank-0 one (v gathered, one payload) or the
+collective DCP one (``ckpt_sharded``): D and its moments once, each
+rank's rows of v and its moments from that rank.
+
 ``blocked`` trains in the space-to-depth layout of a victim with an S2D
 stem, as the serial ``ADIL`` does: the all-reduce of D's gradient is
 elementwise, so it commutes with the column permutation.
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Shard
 
 from ..attacks import adil_core as core
 from ..attacks.adil_core import AdilConfig
@@ -217,6 +222,64 @@ def _ckpt_restore(cache, ckpt_key: dict, state: core.TrainState, generator: torc
     return list(payload["loss"]), list(payload["fooling"])
 
 
+def _meta(state: core.TrainState, generator: torch.Generator, loss_all, fooling_all,
+          steps: int, world: int) -> dict:
+    """The sharded checkpoint's host-side state: the counters, the plan
+    generator's state, the world size, and the loss and fooling curves
+    padded with zeros to ``steps`` entries so that the restore template's
+    shapes are static (``epoch`` says how many are real; the JAX package's
+    ``_meta_template``)."""
+    def pad(values):
+        out = torch.zeros(steps, dtype=torch.float64)
+        out[:len(values)] = torch.tensor(values, dtype=torch.float64)
+        return out
+
+    return {"d_count": torch.tensor(state.d_count), "v_count": torch.tensor(state.v_count),
+            "epoch": torch.tensor(state.epoch), "rng": generator.get_state(),
+            "world": torch.tensor(world), "loss": pad(loss_all), "fooling": pad(fooling_all)}
+
+
+def _sharded_tree(state: core.TrainState, meta: dict, mesh: DeviceMesh) -> dict:
+    """D and its moments as plain tensors (DCP keeps one copy), v and its
+    moments as ``DTensor``s of this rank's rows over ``mesh`` (each rank
+    writes and reads its own), the meta beside them. The ``DTensor``s share
+    the rows' storage: a restore lands in ``state``."""
+    tree = {name: getattr(state, name) for name in _REPLICATED}
+    tree.update({name: DTensor.from_local(getattr(state, name), mesh, [Shard(0)],
+                                          run_check=False) for name in _ROWS})
+    tree["meta"] = meta
+    return tree
+
+
+def _ckpt_save_sharded(cache, ckpt_key: dict, state: core.TrainState,
+                       generator: torch.Generator, loss_all, fooling_all, mesh: DeviceMesh,
+                       steps: int) -> None:
+    """Persist the whole training state in a collective DCP save
+    (``ArtifactCache.save_sharded``): no rank gathers v, so the save scales
+    to codes that fit no single host."""
+    meta = _meta(state, generator, loss_all, fooling_all, steps, mesh.size())
+    cache.save_sharded(_sharded_tree(state, meta, mesh), "ImageNet", **ckpt_key)
+
+
+def _ckpt_restore_sharded(cache, ckpt_key: dict, state: core.TrainState,
+                          generator: torch.Generator, mesh: DeviceMesh, steps: int):
+    """Collective restore of :func:`_ckpt_save_sharded`'s checkpoint into
+    ``state`` (this rank's rows) and ``generator``, in place; returns its
+    (losses, fooling rates), or None without one."""
+    if not cache.exists_sharded("ImageNet", **ckpt_key):
+        return None
+    meta = _meta(state, generator, [], [], steps, mesh.size())
+    cache.load_sharded(_sharded_tree(state, meta, mesh), "ImageNet", **ckpt_key)
+    if int(meta["world"]) != mesh.size():
+        raise ValueError(f"the sharded checkpoint was written by {int(meta['world'])} ranks, "
+                         f"not {mesh.size()}: it resumes only at the world size that wrote it")
+    state.d_count = int(meta["d_count"])
+    state.v_count = int(meta["v_count"])
+    state.epoch = int(meta["epoch"])
+    generator.set_state(meta["rng"])
+    return meta["loss"][:state.epoch].tolist(), meta["fooling"][:state.epoch].tolist()
+
+
 def init_dp_state(device, image_shape, n_total: int, cfg: AdilConfig, mesh: DeviceMesh,
                   seed: int = 0, d_init=None, axis: str = "data") -> core.TrainState:
     """The state :func:`learn_dictionary_distributed` starts from: D (or
@@ -281,16 +344,23 @@ def learn_dictionary_distributed(
     the per-epoch ``loss`` and ``fooling_rate``, the last ``val_fooling``,
     ``blocked`` (whether it ran blocked) and the epochs' ``timing``.
 
-    ``ckpt_sharded`` is the JAX package's choice of checkpoint: "auto" (the
-    default) and False are the rank-0 msgpack checkpoint above, which the
-    all-reduce gather makes for any number of processes; True, the JAX
-    package's orbax collective save, raises ``NotImplementedError``.
+    ``ckpt_sharded`` chooses the checkpoint, as in the JAX package. False
+    is the rank-0 checkpoint above: v and its
+    moments all-reduced onto every rank, one payload written by rank 0
+    through ``cache.save``. True is the collective DCP checkpoint
+    (:func:`_ckpt_save_sharded`, the counterpart of the JAX package's orbax
+    one): every rank writes its own rows of v and its moments under
+    ``.dcp_sharded`` and restores them into its live rows, and nothing is
+    gathered before the final return. "auto" (the default) takes the
+    sharded one where there is more than one process (the mesh's size), as
+    the JAX package's does where ``jax.process_count() > 1``; one process
+    runs a card here, so any data-parallel run of more than one card keeps
+    its codes where they are. The sharded kind
+    resumes only at the world size that wrote it, as in the JAX package,
+    whose templates fix the shapes: the padded row count ``n_local *
+    world`` is part of its shapes, and a checkpoint of another world size
+    raises instead of being resharded.
     """
-    if ckpt_sharded != "auto" and ckpt_sharded:
-        raise NotImplementedError(
-            "ckpt_sharded=True asks for the JAX package's orbax sharded checkpoint, which "
-            "only orbax (a JAX library) reads or writes; use ckpt_sharded=\"auto\" or False, "
-            "the rank-0 msgpack checkpoint that every rank restores")
     images_np, _ = dataset.as_arrays()
     n = images_np.shape[0]
     image_shape = tuple(dataset.image_shape)
@@ -324,8 +394,13 @@ def learn_dictionary_distributed(
                             "dp_train_state_torch_s2d" if twin is not None
                             else "dp_train_state_torch"}
     loss_all, fooling_all, val_fool = [], [], None
+    sharded = bool(checkpoint_every and cache is not None and (
+        mesh.size() > 1 if ckpt_sharded == "auto" else ckpt_sharded))
     if checkpoint_every and cache is not None and resume:
-        restored = _ckpt_restore(cache, ckpt_key, state, generator, mesh, axis)
+        if sharded:
+            restored = _ckpt_restore_sharded(cache, ckpt_key, state, generator, mesh, cfg.steps)
+        else:
+            restored = _ckpt_restore(cache, ckpt_key, state, generator, mesh, axis)
         if restored is not None:
             loss_all, fooling_all = restored
             if verbose and rank == 0:
@@ -349,11 +424,17 @@ def learn_dictionary_distributed(
             print(f"[adil dp] epoch {it} loss {loss_all[-1]:.4f} "
                   f"fooling {fooling_all[-1]:.3f} val {val_fool}")
         if checkpoint_every and cache is not None and (it + 1) % checkpoint_every == 0:
-            _ckpt_save(cache, ckpt_key, state, generator, loss_all, fooling_all, mesh, axis)
+            if sharded:
+                _ckpt_save_sharded(cache, ckpt_key, state, generator, loss_all, fooling_all,
+                                   mesh, cfg.steps)
+            else:
+                _ckpt_save(cache, ckpt_key, state, generator, loss_all, fooling_all, mesh, axis)
         if it > 1 and abs(loss_all[-1] - loss_all[-2]) < cfg.tol:
             break
 
-    if checkpoint_every and cache is not None and rank == 0:
+    if sharded:
+        cache.remove_sharded("ImageNet", **ckpt_key)
+    elif checkpoint_every and cache is not None and rank == 0:
         cache.remove("ImageNet", **ckpt_key)
     v = _gather_rows(state.v, n_dev, rank, group)[:n]
     history = {"loss": loss_all, "fooling_rate": fooling_all, "val_fooling": val_fool,

@@ -101,7 +101,8 @@ def test_codec_refuses_what_it_does_not_support():
     chunked = {"d": {"__msgpack_chunked_array__": True, "shape": {"0": 1}, "chunks": {}}}
     with pytest.raises(ValueError, match="chunked"):
         msgpack_codec.unpack(msgpack.packb(chunked))
-    with pytest.raises(NotImplementedError, match='only orbax.*use backend="msgpack"'):
+    with pytest.raises(NotImplementedError,
+                       match='only orbax.*use backend="msgpack".*ckpt_sharded=True'):
         ArtifactCache("unused", backend="orbax")
 
 

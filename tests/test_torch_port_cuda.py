@@ -6,7 +6,8 @@ wrappers' refusals, three training steps on the card against the CPU, and
 every victim family's logits and CW input gradient on the card against the
 CPU (within 1e-4); the bf16 mixed precision on the card against the CPU,
 the bf16 products' fp32 accumulator, and data-parallel learning at world
-size 1 over NCCL against its serial replay; DeepFool and a UAP-PGD epoch on
+size 1 over NCCL against its serial replay, and a sharded checkpoint of
+CUDA tensors at world size 1 over NCCL (bit-equal); DeepFool and a UAP-PGD epoch on
 the card against the CPU, and data-parallel UAP-PGD at world size 1 over
 NCCL against its replay; both kernels at ADILR's shapes (fused_perturb at
 K=10, fused_adamw_project without a clamp against torch.optim.AdamW), and
@@ -456,6 +457,39 @@ def test_dp_at_world_size_one_over_nccl_matches_the_replay(cuda):
         assert float((d.reshape(8, -1) - state.d).abs().max()) <= 1e-5
         assert float((v - state.v).abs().max()) <= 1e-5
         assert len(history["loss"]) == 2
+    finally:
+        port_dist.shutdown()
+
+
+def test_sharded_checkpoint_of_cuda_tensors_at_world_size_one(cuda, tmp_path):
+    # One rank over NCCL: a plain CUDA tensor, a DTensor of CUDA rows and
+    # CPU meta go through ArtifactCache.save_sharded and come back bit-equal
+    # into the live tensors of a zeroed template.
+    from torch.distributed.tensor import DTensor, Shard
+
+    from dl_attack_on_imagenet_tpu_torch.parallel import auto_initialize, data_mesh
+    from dl_attack_on_imagenet_tpu_torch.parallel import dist as port_dist
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    auto_initialize(device=cuda)
+    try:
+        mesh = data_mesh()
+        g = torch.Generator(device=cuda).manual_seed(0)
+        d = torch.randn((100, 3 * 32 * 32), generator=g, device=cuda)
+        v = torch.randn((10, 100), generator=g, device=cuda)
+
+        def tree(d, v, epoch):
+            return {"d": d, "v": DTensor.from_local(v, mesh, [Shard(0)], run_check=False),
+                    "meta": {"epoch": epoch, "rng": torch.Generator().manual_seed(3).get_state()}}
+
+        cache = ArtifactCache(str(tmp_path))
+        cache.save_sharded(tree(d, v, torch.tensor(5)), "ImageNet", model="tiny")
+        d2, v2, epoch = torch.zeros_like(d), torch.zeros_like(v), torch.tensor(0)
+        cache.load_sharded(tree(d2, v2, epoch), "ImageNet", model="tiny")
+        assert d2.is_cuda and v2.is_cuda
+        assert torch.equal(d2, d) and torch.equal(v2, v) and int(epoch) == 5
+        cache.remove_sharded("ImageNet", model="tiny")
+        assert not cache.exists_sharded("ImageNet", model="tiny")
     finally:
         port_dist.shutdown()
 

@@ -177,7 +177,7 @@ def test_cli_matches_the_jax_cli(files, tmp_path, capsys):
     assert f"imported universal artifact -> {got}" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         cli.main(["--kind", "adil", "--src", files["adil"]])  # --model is required
-    with pytest.raises(NotImplementedError, match='use backend="msgpack"'):
+    with pytest.raises(NotImplementedError, match='use backend="msgpack".*ckpt_sharded=True'):
         cli.main(["--kind", "adil", "--src", files["adil"], "--model", "tiny",
                   "--cache", str(tmp_path / "orbax"), "--backend", "orbax"])
 

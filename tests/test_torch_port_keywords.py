@@ -1,12 +1,14 @@
 """Keyword arguments that a caller of the JAX package passes, accepted by
 the port with the JAX package's meaning: ``learn_dictionary_distributed(
-ckpt_sharded=)`` ("auto" and False are the rank-0 msgpack checkpoint, True
-the orbax one, which the port refuses), ``fold_victim(victim, normalize=)``,
+ckpt_sharded=)`` ("auto" in a world of one process and False are the
+rank-0 msgpack checkpoint, True the collective DCP one, the counterpart of
+the JAX package's orbax checkpoint), ``fold_victim(victim, normalize=)``,
 ``load_torch_checkpoint(path, victim, vit=)`` and ``get_runtime(build=)``;
 and the CLIs' ``build_victim(args, dtype=)``.
 """
 
 import inspect
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +43,10 @@ def _defaults(fn, name):
 
 
 def test_ckpt_sharded_takes_the_msgpack_path_and_refuses_orbax(tmp_path, monkeypatch):
+    # "auto" (in a world of one) and False take the rank-0 msgpack
+    # checkpoint, True the collective DCP one, the counterpart of the JAX
+    # package's orbax checkpoint; all three learn the same D. The orbax
+    # backend itself stays refused, naming msgpack and ckpt_sharded=True.
     assert _defaults(adil_dp.learn_dictionary_distributed, "ckpt_sharded") == _defaults(
         jdp.learn_dictionary_distributed, "ckpt_sharded") == "auto"
     for key in _ENV_KEYS:
@@ -50,25 +56,30 @@ def test_ckpt_sharded_takes_the_msgpack_path_and_refuses_orbax(tmp_path, monkeyp
     data = ArrayDataset(images, np.zeros(4))
     cfg = AdilConfig(n_atoms=4, batch_size=4, steps=1, loss="logits")
     saves = []
-    real_save = adil_dp._ckpt_save
-    monkeypatch.setattr(adil_dp, "_ckpt_save", lambda cache, *a: saves.append(cache.root)
-                        or real_save(cache, *a))
+    for name in ("_ckpt_save", "_ckpt_save_sharded"):
+        real = getattr(adil_dp, name)
+        monkeypatch.setattr(adil_dp, name, lambda cache, *a, _n=name, _r=real: saves.append(
+            (_n, cache.root)) or _r(cache, *a))
     auto_initialize(device="cpu")
     try:
         mesh = data_mesh()
-        with pytest.raises(NotImplementedError, match="orbax"):
-            adil_dp.learn_dictionary_distributed(victim, data, cfg, mesh, ckpt_sharded=True)
         runs = {}
-        for flag in ("auto", False):
+        for flag, path in (("auto", "_ckpt_save"), (False, "_ckpt_save"),
+                           (True, "_ckpt_save_sharded")):
             root = str(tmp_path / str(flag))
             d, _, history = adil_dp.learn_dictionary_distributed(
                 victim, data, cfg, mesh, checkpoint_every=1, cache=ArtifactCache(root),
                 ckpt_sharded=flag)
-            assert saves[-1] == root  # the rank-0 msgpack checkpoint
+            assert saves[-1] == (path, root)
+            assert os.listdir(root) == []  # removed at the end
             runs[flag] = (d, history["loss"])
     finally:
         port_dist.shutdown()
-    assert torch.equal(runs["auto"][0], runs[False][0]) and runs["auto"][1] == runs[False][1]
+    for flag in (False, True):
+        assert torch.equal(runs["auto"][0], runs[flag][0]) and runs["auto"][1] == runs[flag][1]
+    with pytest.raises(NotImplementedError,
+                       match='only orbax.*use backend="msgpack".*ckpt_sharded=True'):
+        ArtifactCache(str(tmp_path), backend="orbax")
 
 
 def test_fold_victim_takes_normalize():
