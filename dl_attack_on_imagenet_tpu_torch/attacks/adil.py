@@ -28,6 +28,17 @@ sync), on a device snapshot of epoch t's state, so that the convergence
 stop, the validation and the checkpoint of epoch t see exactly the serial
 state. "auto" takes it where 3x the images and 3x the state fit in 60% of
 the device's memory.
+
+Spans (``utils.profiling``; ``adil_core`` has those of the step and the
+solvers): ``adil/forward`` a ``forward`` call, its unit of work; a
+resident job's start ``adil/prepare/copy``, ``adil/prepare/draws`` and
+``adil/prepare/labels``; each epoch ``adil/epoch`` (its unit of work, with
+the job), holding ``adil/epoch/draw`` (its batches and gather) and its
+steps; ``adil/epoch_end`` its bookkeeping; the streamed and folder paths'
+wait for their next batch ``adil/input_wait``. Each blocking host read
+of device data is a ``sync/<site>`` span: ``sync/read_later`` (the
+pipelined epoch's sums), ``sync/epoch_sums``, ``sync/labels``,
+``sync/val_fooled``, ``sync/checkpoint``, ``sync/save``.
 """
 
 from __future__ import annotations
@@ -76,17 +87,31 @@ def _read_later(sums):
     after it."""
     s = torch.stack(sums)
     if not s.is_cuda:
-        return s.tolist
-    host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
-    host.copy_(s, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+        host, done = s, None
+    else:
+        host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+        host.copy_(s, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
 
     def read():
-        done.synchronize()
-        return host.tolist()
+        with annotate("sync/read_later"):
+            if done is not None:
+                done.synchronize()
+            return host.tolist()
 
     return read
+
+
+def _spanned(batches, name: str):
+    """``batches``, the wait for each next one a span ``name``."""
+    it = iter(batches)
+    while True:
+        with annotate(name):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def val_fooled(victim, d: torch.Tensor, data_val, cfg: AdilConfig, device,
@@ -204,6 +229,8 @@ class ADIL(Attack):
         self.history: dict = {}
         self.timing: dict = {}
         self._rng_calls = 0  # per-call seed offset so equal batches differ
+        self._calls = 0  # forward calls, and learning jobs: the spans' units of work
+        self._jobs = 0
 
         # Artifact memoization: train only if the trained-dictionary file is
         # missing.
@@ -225,6 +252,7 @@ class ADIL(Attack):
     def learn_dictionary(self, data_train, data_val=None) -> None:
         """Learn D (and the training codes v), save the artifact, and keep D
         as this attack's dictionary."""
+        self._jobs += 1
         if self._is_path_dataset(data_train):
             data_train, data_val = self._dispatch_folder(data_train, data_val)
             if data_train is None:
@@ -299,13 +327,19 @@ class ADIL(Attack):
         are taken from fp32: the step casts x to bf16 anyway, and the
         epoch's gather moves half the bytes."""
         ds = as_array_dataset(data_train)
-        images = torch.as_tensor(ds.images, dtype=torch.float32, device=self.device).contiguous()
-        generator = self._generator()
-        state = self._init(ds.image_shape, len(ds), generator, mode)
-        if twin is not None:
-            images = space_to_depth(images)
-            state.d = space_to_depth(core.d_image(state.d, ds.image_shape)).reshape(state.d.shape)
-        labels = core.predict_labels(twin or self.victim, images)
+        unit = ("job", self._jobs, "prepare")
+        with annotate("adil/prepare/copy", unit):
+            images = torch.as_tensor(ds.images, dtype=torch.float32,
+                                     device=self.device).contiguous()
+        with annotate("adil/prepare/draws", unit):
+            generator = self._generator()
+            state = self._init(ds.image_shape, len(ds), generator, mode)
+            if twin is not None:
+                images = space_to_depth(images)
+                state.d = space_to_depth(core.d_image(state.d, ds.image_shape)).reshape(
+                    state.d.shape)
+        with annotate("adil/prepare/labels", unit):
+            labels = core.predict_labels(twin or self.victim, images)
         if mode == "gd" and self.cfg.compute_dtype is not None:
             images = images.to(self.cfg.compute_dtype)
         return ds, images, labels, generator, state
@@ -315,7 +349,9 @@ class ADIL(Attack):
         (:func:`val_fooled`, on the presentation dictionary)."""
         ds = as_array_dataset(data_val)
         d = self._present_d(d, ds.image_shape)
-        return float(val_fooled(self.victim, d, ds, self.cfg, self.device)) / len(ds)
+        fooled = val_fooled(self.victim, d, ds, self.cfg, self.device)
+        with annotate("sync/val_fooled"):
+            return float(fooled) / len(ds)
 
     def _present_d(self, d_flat: torch.Tensor, image_shape) -> torch.Tensor:
         """The training D in its presentation shape (K, H, W, C), its
@@ -341,20 +377,21 @@ class ADIL(Attack):
         """Host bookkeeping after epoch (or round) ``t`` with its summed
         (loss, fooling): history, validation, metrics, checkpoint. Returns
         True when the convergence rule ``t > 1 and |Δloss| < tol`` fires."""
-        losses, rates = history["loss"], history["fooling_rate"]
-        losses.append(sums[0] / n)
-        rates.append(sums[1] / n)
-        if data_val is not None and self.val_every and (t + 1) % self.val_every == 0:
-            history["val_fooling"] = self._val_fooling(state.d, data_val)
-        val = history["val_fooling"]
-        self.metrics.log(t, loss=losses[-1], fooling=rates[-1],
-                         val_fooling=val if val is not None else float("nan"))
-        if self.verbose:
-            print(f"[adil {tag}] epoch {t} loss {losses[-1]:.4f} "
-                  f"fooling {rates[-1]:.3f} val {val}")
-        if self.checkpoint_every and (t + 1) % self.checkpoint_every == 0:
-            self._save_train_state(state, generator, history)
-        return t > 1 and abs(losses[-1] - losses[-2]) < self.cfg.tol
+        with annotate("adil/epoch_end", ("job", self._jobs, "epoch", t)):
+            losses, rates = history["loss"], history["fooling_rate"]
+            losses.append(sums[0] / n)
+            rates.append(sums[1] / n)
+            if data_val is not None and self.val_every and (t + 1) % self.val_every == 0:
+                history["val_fooling"] = self._val_fooling(state.d, data_val)
+            val = history["val_fooling"]
+            self.metrics.log(t, loss=losses[-1], fooling=rates[-1],
+                             val_fooling=val if val is not None else float("nan"))
+            if self.verbose:
+                print(f"[adil {tag}] epoch {t} loss {losses[-1]:.4f} "
+                      f"fooling {rates[-1]:.3f} val {val}")
+            if self.checkpoint_every and (t + 1) % self.checkpoint_every == 0:
+                self._save_train_state(state, generator, history)
+            return t > 1 and abs(losses[-1] - losses[-2]) < self.cfg.tol
 
     def _resume(self, state, generator, tag: str) -> dict:
         """The history so far: restored with the state and the generator
@@ -381,16 +418,20 @@ class ADIL(Attack):
         timer = StepTimer(warmup=1)
 
         def epoch():
-            with annotate("adil/epoch"):
-                batches = core.make_batches(generator, n, self.cfg.batch_size)
-                return core.run_epoch(step, state, *core.preslice_epoch(images, labels, batches))
+            with annotate("adil/epoch", ("job", self._jobs, "epoch", state.epoch)):
+                with annotate("adil/epoch/draw"):
+                    batches = core.make_batches(generator, n, self.cfg.batch_size)
+                    sliced = core.preslice_epoch(images, labels, batches)
+                return core.run_epoch(step, state, *sliced)
 
         if self._resolve_pipeline(images, state):
             state = self._pipelined(epoch, state, generator, n, history, data_val, timer)
         else:
             for t in range(state.epoch, self.cfg.steps):
                 with timer.step():
-                    sums = torch.stack(epoch()).tolist()  # the epoch's one host read
+                    sums = torch.stack(epoch())
+                    with annotate("sync/epoch_sums"):  # the epoch's one host read
+                        sums = sums.tolist()
                 if self._end_epoch(t, "gd", state, generator, sums, n, history, data_val):
                     break
         self._finish(state, ds.image_shape, history, timer)
@@ -451,21 +492,25 @@ class ADIL(Attack):
         labels_host = np.empty((n,), np.int64)
         for idx, x, _ in ds.batches(self.cfg.batch_size):  # one pass for clean labels
             images = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-            labels_host[idx] = core.predict_labels(self.victim, images).cpu().numpy()
+            labels = core.predict_labels(self.victim, images)
+            with annotate("sync/labels"):
+                labels_host[idx] = labels.cpu().numpy()
         history = self._resume(state, generator, "gd/stream")
         timer = StepTimer(warmup=1)
         for t in range(state.epoch, self.cfg.steps):
-            with timer.step(), annotate("adil/epoch_streamed"):
+            with timer.step(), annotate("adil/epoch_streamed", ("job", self._jobs, "epoch", t)):
                 loss_sum = torch.zeros((), device=self.device)
                 fool_sum = torch.zeros((), device=self.device)
-                for x, labels, idx, mask in prefetch_to_device(
+                for x, labels, idx, mask in _spanned(prefetch_to_device(
                         self._host_batches(ds, labels_host, self.seed + t), size=2,
-                        device=self.device):
+                        device=self.device), "adil/input_wait"):
                     loss, fool = step(state, x, labels, idx, mask)
                     loss_sum += loss
                     fool_sum += fool
                 state.epoch += 1
-                sums = torch.stack([loss_sum, fool_sum]).tolist()
+                sums = torch.stack([loss_sum, fool_sum])
+                with annotate("sync/epoch_sums"):
+                    sums = sums.tolist()
             if self._end_epoch(t, "gd/stream", state, generator, sums, n, history, data_val):
                 break
         self._finish(state, ds.image_shape, history, timer)
@@ -501,22 +546,25 @@ class ADIL(Attack):
         for x, _, rows, mask in prefetch_to_device(batches(np.zeros(n, np.int64), False),
                                                    size=2, device=self.device):
             labels[torch.where(mask > 0, rows, n)] = core.predict_labels(self.victim, x)
-        labels_host = labels[:n].cpu().numpy()
+        with annotate("sync/labels"):
+            labels_host = labels[:n].cpu().numpy()
 
         history = self._resume(state, generator, "gd/native")
         timer = StepTimer(warmup=1)
         for t in range(state.epoch, self.cfg.steps):
-            with timer.step(), annotate("adil/epoch_native"):
+            with timer.step(), annotate("adil/epoch_native", ("job", self._jobs, "epoch", t)):
                 loss_sum = torch.zeros((), device=self.device)
                 fool_sum = torch.zeros((), device=self.device)
-                for x, labs, rows, mask in prefetch_to_device(
+                for x, labs, rows, mask in _spanned(prefetch_to_device(
                         batches(labels_host, True, self.seed + 7919 * (t + 1)), size=2,
-                        device=self.device):
+                        device=self.device), "adil/input_wait"):
                     loss, fool = step(state, x, labs, rows, mask)
                     loss_sum += loss
                     fool_sum += fool
                 state.epoch += 1
-                sums = torch.stack([loss_sum, fool_sum]).tolist()  # the epoch's one host read
+                sums = torch.stack([loss_sum, fool_sum])
+                with annotate("sync/epoch_sums"):  # the epoch's one host read
+                    sums = sums.tolist()
             if self._end_epoch(t, "gd/native", state, generator, sums, n, history, data_val):
                 break
         self._finish(state, (size, size, 3), history, timer)
@@ -535,13 +583,15 @@ class ADIL(Attack):
         timer = StepTimer(warmup=1)
         rounds = max(self.cfg.steps // self.cfg.steps_inner, 1)
         for t in range(state.epoch, rounds):
-            with timer.step(), annotate("adil/round"):
+            with timer.step(), annotate("adil/round", ("job", self._jobs, "epoch", t)):
                 for step in [step_v] * self.cfg.steps_inner + [step_d] * self.cfg.steps_inner:
                     batches = core.make_batches(generator, n, self.cfg.batch_size)
                     sums = core.run_epoch(step, state, *core.preslice_epoch(
                         images, labels, batches))
                 state.epoch = t + 1
-                sums = torch.stack(sums).tolist()  # the last D epoch's
+                sums = torch.stack(sums)
+                with annotate("sync/epoch_sums"):  # the last D epoch's
+                    sums = sums.tolist()
             if self._end_epoch(t, "alter", state, generator, sums, n, history, data_val):
                 break
         self._finish(state, ds.image_shape, history, timer)
@@ -592,7 +642,8 @@ class ADIL(Attack):
             "loss": np.asarray(history["loss"], np.float64),
             "fooling": np.asarray(history["fooling_rate"], np.float64),
         }
-        self.cache.save(payload, "ImageNet", **self._train_ckpt_key())
+        with annotate("sync/checkpoint"):  # the state's tensors, read to the host
+            self.cache.save(payload, "ImageNet", **self._train_ckpt_key())
 
     def _restore_train_state(self, state: core.TrainState, generator: torch.Generator):
         """Load a train-state checkpoint into ``state`` and ``generator`` in
@@ -620,7 +671,8 @@ class ADIL(Attack):
             payload = {"d": d, "v": v}
             payload.update({k: np.asarray(val) for k, val in history.items()
                             if val is not None})
-            self.cache.save(payload, "ImageNet", model=self.model_name)
+            with annotate("sync/save"):  # D and v, read to the host
+                self.cache.save(payload, "ImageNet", model=self.model_name)
         self.dictionary = d.contiguous()
         self.history = history
 
@@ -664,26 +716,30 @@ class ADIL(Attack):
     def forward(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Attack a batch with the memoized dictionary, by ``attack`` mode;
         where there is none yet, learn one on this batch first."""
-        if not self.is_trained:
-            self.learn_dictionary((images.detach().cpu().numpy(),
-                                   labels.detach().cpu().numpy()), None)
-        d = self._load_dictionary()
-        images = self._images(images)
-        if self.attack_mode == "supervised":
-            adv = self._blocked_supervised(core.supervised_ddrague, d, images)
-            if adv is not None:
-                return adv
-            return core.supervised_ddrague(self.victim, d, images, self.cfg)
-        self._rng_calls += 1
-        generator = torch.Generator(device=images.device)
-        generator.manual_seed(self.seed * 1_000_003 + self._rng_calls)
-        return core.unsupervised_sample(self.victim, d, images, generator, self.cfg)
+        self._calls += 1
+        with annotate("adil/forward", ("forward", self._calls)):
+            if not self.is_trained:
+                self.learn_dictionary((images.detach().cpu().numpy(),
+                                       labels.detach().cpu().numpy()), None)
+            d = self._load_dictionary()
+            images = self._images(images)
+            if self.attack_mode == "supervised":
+                adv = self._blocked_supervised(core.supervised_ddrague, d, images)
+                if adv is not None:
+                    return adv
+                return core.supervised_ddrague(self.victim, d, images, self.cfg)
+            self._rng_calls += 1
+            generator = torch.Generator(device=images.device)
+            generator.manual_seed(self.seed * 1_000_003 + self._rng_calls)
+            return core.unsupervised_sample(self.victim, d, images, generator, self.cfg)
 
     def forward_supervised_adamw(self, images: torch.Tensor) -> torch.Tensor:
         """The alternative supervised solver: AdamW on the codes."""
-        d = self._load_dictionary()
-        images = self._images(images)
-        adv = self._blocked_supervised(core.supervised_adamw_codes, d, images)
-        if adv is not None:
-            return adv
-        return core.supervised_adamw_codes(self.victim, d, images, self.cfg)
+        self._calls += 1
+        with annotate("adil/forward", ("forward", self._calls)):
+            d = self._load_dictionary()
+            images = self._images(images)
+            adv = self._blocked_supervised(core.supervised_adamw_codes, d, images)
+            if adv is not None:
+                return adv
+            return core.supervised_adamw_codes(self.victim, d, images, self.cfg)

@@ -20,6 +20,13 @@ supervised solver's final read-off with ``eps = inf`` (``clip(x + D v, 0,
 kernel has no backward; the early stop on ``max|Δ| < tol`` reads one scalar
 back to the host per step.
 
+Spans (``utils.profiling``): ``adil/step`` a training step; a solver's
+iterations ``adil/ddrague/step`` and ``adil/adamw_codes/step``, each with
+its early-stop read ``sync/step_delta``; DDrague's clean labels and D†
+``adil/ddrague/labels`` (D†'s solve checks its result on the host:
+``sync/dict_pinv``); ``adil/readoff``; sampling's ``adil/sample/labels``,
+``adil/sample/draws`` and ``adil/sample/trial``.
+
 Mixed precision (``perturb_dtype="bfloat16"``), the JAX package's contract:
 the contractions inside the inner forwards run in bf16 (``batch_loss``'s
 ``v·D`` added to a bf16 image, DDrague's ``codes_from_pinv`` and
@@ -51,6 +58,7 @@ from ..ops import (
     project_codes,
     project_dictionary,
 )
+from ..utils.profiling import annotate
 
 Model = Callable[[torch.Tensor], torch.Tensor]
 
@@ -222,27 +230,28 @@ def make_train_step(model: Model, cfg: AdilConfig, update: str = "both",
     clip_d = 1.0 if cfg.norm == "linf" else float("inf")
 
     def step(state: TrainState, x, labels, idx, mask):
-        d = state.d.detach().requires_grad_(train_d)
-        v = state.v.detach().requires_grad_(train_v)
-        loss, fooling = batch_loss(model, d, v[idx], x, labels, mask, cfg)
-        grads = iter(torch.autograd.grad(
-            loss, [t for t, on in ((d, train_d), (v, train_v)) if on]))
-        with torch.no_grad():
-            if train_d:
-                g_d = next(grads)
-                if reduce_d_grad is not None:
-                    reduce_d_grad(g_d)
-                state.d_count += 1
-                fused_adamw_project(state.d, g_d, state.d_mu, state.d_nu,
-                                    state.d_count, lr_d, clip_d)
-                if cfg.norm == "l2":
-                    state.d.copy_(project_dictionary(state.d, "l2"))
-            if train_v:
-                state.v_count += 1
-                fused_adamw_project(state.v, next(grads), state.v_mu, state.v_nu,
-                                    state.v_count, cfg.step_size, float("inf"))
-                state.v.copy_(project_codes(state.v, cfg.eps, cfg.norm))
-        return loss.detach(), fooling
+        with annotate("adil/step"):
+            d = state.d.detach().requires_grad_(train_d)
+            v = state.v.detach().requires_grad_(train_v)
+            loss, fooling = batch_loss(model, d, v[idx], x, labels, mask, cfg)
+            grads = iter(torch.autograd.grad(
+                loss, [t for t, on in ((d, train_d), (v, train_v)) if on]))
+            with torch.no_grad():
+                if train_d:
+                    g_d = next(grads)
+                    if reduce_d_grad is not None:
+                        reduce_d_grad(g_d)
+                    state.d_count += 1
+                    fused_adamw_project(state.d, g_d, state.d_mu, state.d_nu,
+                                        state.d_count, lr_d, clip_d)
+                    if cfg.norm == "l2":
+                        state.d.copy_(project_dictionary(state.d, "l2"))
+                if train_v:
+                    state.v_count += 1
+                    fused_adamw_project(state.v, next(grads), state.v_mu, state.v_nu,
+                                        state.v_count, cfg.step_size, float("inf"))
+                    state.v.copy_(project_codes(state.v, cfg.eps, cfg.norm))
+            return loss.detach(), fooling
 
     return step
 
@@ -307,19 +316,23 @@ def predict_labels(model: Model, images: torch.Tensor, batch_size: int = 256) ->
 
 
 def _adamw_loop(x: torch.Tensor, loss_fn, project, lr: float, steps: int,
-                tol: float) -> torch.Tensor:
+                tol: float, span: str) -> torch.Tensor:
     """Projected AdamW on ``x`` for at most ``steps`` iterations, stopping
-    early once ``max|Δx| < tol``. Returns the final iterate (detached)."""
+    early once ``max|Δx| < tol``, each iteration a span ``span``. Returns the
+    final iterate (detached)."""
     x = x.detach().clone().requires_grad_(True)
     opt = make_optimizer([x], lr)
     for _ in range(steps):
-        (x.grad,) = torch.autograd.grad(loss_fn(x), x)
-        prev = x.detach().clone()
-        opt.step()
-        with torch.no_grad():
-            x.copy_(project(x))
-            delta = torch.max(torch.abs(x - prev))
-        if delta.item() < tol:
+        with annotate(span):
+            (x.grad,) = torch.autograd.grad(loss_fn(x), x)
+            prev = x.detach().clone()
+            opt.step()
+            with torch.no_grad():
+                x.copy_(project(x))
+                delta = torch.max(torch.abs(x - prev))
+            with annotate("sync/step_delta"):
+                done = delta.item() < tol
+        if done:
             break
     return x.detach()
 
@@ -345,9 +358,10 @@ def supervised_ddrague(
     eps = cfg.eps if eps is None else eps
     kappa = cfg.kappa if kappa is None else kappa
     dt = cfg.compute_dtype
-    with torch.no_grad():
+    with torch.no_grad(), annotate("adil/ddrague/labels"):
         labels = torch.argmax(model(images).float(), dim=-1)
-        d_pinv = dict_pinv(d)
+        with annotate("sync/dict_pinv"):  # the solve checks its result on the host
+            d_pinv = dict_pinv(d)
     images_c = images if dt is None else images.to(dt)
     red = "mean" if cfg.loss == "ce" else "sum"
 
@@ -359,8 +373,8 @@ def supervised_ddrague(
 
     z = _adamw_loop(torch.zeros_like(images), loss_fn,
                     lambda z: linf_clamp(z, eps), cfg.code_lr,
-                    cfg.steps_inference, cfg.tol)
-    with torch.no_grad():
+                    cfg.steps_inference, cfg.tol, "adil/ddrague/step")
+    with torch.no_grad(), annotate("adil/readoff"):
         v = codes_from_pinv(z, d_pinv)
         return fused_perturb(v, d, images, float("inf"))
 
@@ -400,8 +414,8 @@ def supervised_adamw_codes(
     v0 = torch.zeros((images.shape[0], cfg.n_atoms), dtype=images.dtype,
                      device=images.device)
     v = _adamw_loop(v0, loss_fn, lambda v: project_codes(v, eps, cfg.norm),
-                    cfg.code_lr, cfg.steps_code, cfg.tol)
-    with torch.no_grad():
+                    cfg.code_lr, cfg.steps_code, cfg.tol, "adil/adamw_codes/step")
+    with torch.no_grad(), annotate("adil/readoff"):
         v = project_codes(v, eps, cfg.norm)
         if return_fooling:
             adv = images + dict_apply(v, d).reshape(images.shape)
@@ -445,10 +459,12 @@ def unsupervised_sample(
     sampler with given codes, and then ``generator`` may be None.
     """
     eps = cfg.eps if eps is None else eps
-    pre_labels = torch.argmax(model(images).float(), dim=-1)
+    with annotate("adil/sample/labels"):
+        pre_labels = torch.argmax(model(images).float(), dim=-1)
     n = images.shape[0]
     if v_trials is None:
-        v_trials = [sample_sphere(generator, n, cfg, eps) for _ in range(cfg.trials)]
+        with annotate("adil/sample/draws"):
+            v_trials = [sample_sphere(generator, n, cfg, eps) for _ in range(cfg.trials)]
 
     fooled = torch.zeros(n, dtype=torch.bool, device=images.device)
     mse_fool = torch.full((n,), float("inf"), device=images.device)
@@ -456,15 +472,16 @@ def unsupervised_sample(
     best = images.clone()
     pixel_axes = tuple(range(1, images.dim()))
     for v in v_trials:
-        adv = fused_perturb(v.contiguous(), d, images, eps)
-        fooling = torch.argmax(model(adv).float(), dim=-1) != pre_labels
-        mse = torch.sum((images - adv) ** 2, dim=pixel_axes)
+        with annotate("adil/sample/trial"):
+            adv = fused_perturb(v.contiguous(), d, images, eps)
+            fooling = torch.argmax(model(adv).float(), dim=-1) != pre_labels
+            mse = torch.sum((images - adv) ** 2, dim=pixel_axes)
 
-        take_fool = fooling & (mse < mse_fool)
-        take_nofool = ~fooled & ~fooling & (mse < mse_nofool)
-        mse_fool = torch.where(take_fool, mse, mse_fool)
-        mse_nofool = torch.where(take_nofool, mse, mse_nofool)
-        take = (take_fool | take_nofool).reshape((n,) + (1,) * (images.dim() - 1))
-        best = torch.where(take, adv, best)
-        fooled = fooled | fooling
+            take_fool = fooling & (mse < mse_fool)
+            take_nofool = ~fooled & ~fooling & (mse < mse_nofool)
+            mse_fool = torch.where(take_fool, mse, mse_fool)
+            mse_nofool = torch.where(take_nofool, mse, mse_nofool)
+            take = (take_fool | take_nofool).reshape((n,) + (1,) * (images.dim() - 1))
+            best = torch.where(take, adv, best)
+            fooled = fooled | fooling
     return best

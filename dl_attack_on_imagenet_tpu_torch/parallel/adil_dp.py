@@ -44,7 +44,7 @@ from ..attacks import adil_core as core
 from ..attacks.adil_core import AdilConfig
 from ..data import ArrayDataset
 from ..models import blocked_twin, depth_to_space, space_to_depth
-from ..utils import StepTimer
+from ..utils import StepTimer, annotate
 from .dist import current_device
 
 
@@ -410,7 +410,9 @@ def learn_dictionary_distributed(
     for it in range(state.epoch, cfg.steps):
         t0 = time.perf_counter()
         batches = make_local_batches(generator, n, n_dev, cfg.batch_size)
-        sums = torch.stack(epoch_fn(state, images, labels, batches)).tolist()
+        sums = torch.stack(epoch_fn(state, images, labels, batches))
+        with annotate("sync/epoch_sums"):
+            sums = sums.tolist()
         timer.record(time.perf_counter() - t0)
         loss_all.append(sums[0] / n)
         fooling_all.append(sums[1] / n)
