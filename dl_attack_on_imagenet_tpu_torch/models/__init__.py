@@ -4,9 +4,11 @@ Port of ``dl_attack_on_imagenet_tpu/models/__init__.py``, with the same
 registry: the ResNets, DenseNet, GoogLeNet, Inception-v3, MobileNetV2, VGG,
 ViT and the tiny test CNN. A name picks a classifier, the ImageNet
 normalization is prepended, and the result is a frozen function from [0, 1]
-NHWC images to logits: eval mode, no weight gradients, weights in
-``channels_last``. The ResNets, DenseNet and GoogLeNet take ``stem_s2d``
-(their stem on 2x2 space-to-depth blocks); :func:`blocked_twin` gives such a
+NHWC images to logits: eval mode, no weight gradients, and every
+convolution in the memory layout that its dtype's kernels take
+(:func:`victim_memory_format`): contiguous NCHW for fp32, ``channels_last``
+for bf16. The ResNets, DenseNet and GoogLeNet take ``stem_s2d`` (their
+stem on 2x2 space-to-depth blocks); :func:`blocked_twin` gives such a
 victim's twin over the blocked images themselves. ``dtype=torch.bfloat16``
 builds a bf16 victim: fp32 parameters, bf16 compute layer by layer as the
 JAX package's ``dtype=jnp.bfloat16`` victim (``models.layers``), bf16
@@ -88,18 +90,31 @@ def fast_victim_kwargs(name: str) -> dict:
     return {}
 
 
+def victim_memory_format(dtype: torch.dtype) -> torch.memory_format:
+    """The memory layout of a victim of compute dtype ``dtype``: contiguous
+    NCHW for fp32, whose cuDNN kernels are NCHW ones (given channels_last
+    tensors, cuDNN transposes each convolution's input to NCHW and its
+    output back, forward and input gradient alike), and ``channels_last``
+    for bf16, whose tensor-core kernels are native NHWC."""
+    if resolve_dtype(dtype) == torch.bfloat16:
+        return torch.channels_last
+    return torch.contiguous_format
+
+
 class VictimModel(nn.Module):
     """A frozen classifier over [0, 1] NHWC images.
 
-    ``forward`` permutes the NHWC batch to an NCHW view; on a contiguous
-    NHWC tensor that view is already in ``channels_last`` memory format, so
-    no copy is made before the first convolution. The input is normalized
-    in its own dtype, as the JAX wrapper normalizes it. ``dtype`` is the
-    net's compute dtype: an fp32 net takes the normalized input cast to
-    fp32 (Flax's fp32 layers promote a bf16 one); a bf16 net takes it as it
-    is, each layer casting to bf16 where Flax's does, and returns bf16
-    logits, which the attacks cast to fp32 before a loss, as the JAX
-    package's do.
+    ``forward`` permutes the NHWC batch to an NCHW view, which on a
+    contiguous NHWC tensor is in ``channels_last`` memory format, and hands
+    the net its input in :attr:`memory_format`, the layout of the net's
+    weights (:func:`victim_memory_format` of the dtype): a bf16 victim takes
+    the view as it is, an fp32 one a contiguous NCHW copy, made once, after
+    the normalization. The input is normalized in its own dtype, as the JAX
+    wrapper normalizes it. ``dtype`` is the net's compute dtype: an fp32
+    net takes the normalized input cast to fp32 (Flax's fp32 layers promote
+    a bf16 one); a bf16 net takes it as it is, each layer casting to bf16
+    where Flax's does, and returns bf16 logits, which the attacks cast to
+    fp32 before a loss, as the JAX package's do.
 
     ``blocked_input=True`` makes the victim of the 2x2 space-to-depth
     images ``(N, S/2, S/2, 12)`` (``layers.space_to_depth``) of a net with
@@ -124,12 +139,24 @@ class VictimModel(nn.Module):
     def device(self) -> torch.device:
         return next(self.net.parameters()).device
 
+    @property
+    def memory_format(self) -> torch.memory_format:
+        """The layout of the net's convolution weights (``create_model`` sets
+        it to :func:`victim_memory_format` of the dtype), read off the first
+        4-D weight that is in one layout and not the other."""
+        for p in self.net.parameters():
+            if p.dim() == 4 and p.is_contiguous() != p.is_contiguous(
+                    memory_format=torch.channels_last):
+                return torch.contiguous_format if p.is_contiguous() else torch.channels_last
+        return torch.contiguous_format
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
         if self.norm is not None:
             x = self.norm(x)
         if self.dtype == torch.float32:
-            x = x.float()
+            x = x.to(torch.float32, memory_format=self.memory_format)
+        x = x.contiguous(memory_format=self.memory_format)
         if self.blocked_input:
             return self.net(x, blocked_input=True)
         return self.net(x)
@@ -198,7 +225,8 @@ def create_model(
     refuse both with a ``TypeError``, as the JAX package's do.
     ``dtype`` is the compute dtype, ``torch.float32`` or ``torch.bfloat16``:
     the parameters stay fp32 and a bf16 victim computes and returns bf16
-    (see :class:`VictimModel`).
+    (see :class:`VictimModel`). The 4-D weights take the dtype's
+    :func:`victim_memory_format`.
     """
     key = name.lower()
     if key not in MODEL_REGISTRY:
@@ -231,7 +259,7 @@ def create_model(
         net.load_state_dict(state_dict)
     if fold_bn:
         fold_batchnorms_(net)
-    net = net.to(memory_format=torch.channels_last)
+    net = net.to(memory_format=victim_memory_format(dtype))
     victim = VictimModel(key, net, size, normalize, mean, std, blocked_input, dtype)
     victim.to(dev)
     victim.eval()
@@ -246,7 +274,7 @@ def blocked_twin(victim: VictimModel) -> Optional[VictimModel]:
     victim's net has no S2D stem, as in the JAX package, whose plain stem
     keeps its parameters elsewhere. Memoized on the victim (outside its
     submodules, so that its ``state_dict`` does not change). The twin keeps
-    the victim's dtype."""
+    the victim's dtype and, sharing its net, its memory format."""
     if victim.blocked_input:
         return victim
     if not getattr(victim.net, "stem_s2d", False):
@@ -266,4 +294,5 @@ def blocked_twin(victim: VictimModel) -> Optional[VictimModel]:
 __all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size", "blocked_twin",
            "create_model", "densenet121", "densenet169", "depth_to_space", "fast_victim_kwargs",
            "googlenet", "inception_v3", "mobilenet_v2", "resnet18", "resnet34", "resnet50",
-           "space_to_depth", "tiny_cnn", "vgg11", "vgg16", "vgg19", "vit_b16", "vit_tiny"]
+           "space_to_depth", "tiny_cnn", "vgg11", "vgg16", "vgg19", "victim_memory_format",
+           "vit_b16", "vit_tiny"]

@@ -45,9 +45,10 @@ class _AvgPool3x3(torch.autograd.Function):
 
 
 def _avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """The 3x3/s1 "SAME" average pool: :class:`_AvgPool3x3` in fp32; a bf16
-    tensor sums its taps in bf16 (``layers.avg_pool``), which uses no
-    ``avg_pool2d`` backward."""
+    """The 3x3/s1 "SAME" average pool: :class:`_AvgPool3x3` in fp32 (an
+    fp32 victim runs in NCHW, where PyTorch's backward is right, but its
+    net can be moved to channels_last); a bf16 tensor sums its taps in bf16
+    (``layers.avg_pool``), which uses no ``avg_pool2d`` backward."""
     if x.dtype == torch.float32:
         return _AvgPool3x3.apply(x)
     return avg_pool(x, 3, 1, "SAME")

@@ -24,8 +24,8 @@ max pool and every ReLU of the zoo by environment at import:
 ``vjp`` (a first-match backward over the window taps) or ``slices`` (a max
 over the taps, whose gradient is split among exact ties);
 ``ADIL_RELU`` is ``plain`` (default), ``bool`` (the backward keeps a 1-byte
-mask) or ``packed`` (the mask packed 8 to a ``uint8`` along the channels,
-the innermost memory axis of a channels_last tensor). Only ``slices``
+mask) or ``packed`` (the mask packed 8 to a ``uint8`` along the channel
+axis by index, whatever the memory layout). Only ``slices``
 changes a gradient, on ties. :data:`POOL_MODE` and :data:`RELU_MODE` hold
 the choice and are read at each call.
 """
@@ -85,9 +85,14 @@ def depth_to_space(xb: torch.Tensor, block: int = 2) -> torch.Tensor:
 
 
 def space_to_depth_nchw(x: torch.Tensor) -> torch.Tensor:
-    """:func:`space_to_depth` of an NCHW view (channels_last in memory, as
-    the victims' inputs are), as an NCHW view of the blocked tensor."""
-    return space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    """:func:`space_to_depth` of an NCHW tensor, as an NCHW tensor of the
+    blocked image in ``x``'s memory layout: ``channels_last`` (a bf16
+    victim's) or else contiguous (an fp32 victim's). Either is one copy."""
+    if x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous():
+        return space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    n, c, h, w = x.shape
+    xb = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)  # (n, ki, kj, c, i, j)
+    return xb.reshape(n, 4 * c, h // 2, w // 2)
 
 
 class Normalize(nn.Module):
@@ -195,8 +200,8 @@ class _MaskReLU(torch.autograd.Function):
 
 
 def _channel_axis(x: torch.Tensor) -> int:
-    """The channel axis: 1 of an NCHW activation (the innermost memory axis
-    in channels_last), the last of a (N, features) one."""
+    """The channel axis: 1 of an NCHW activation (in either memory layout),
+    the last of a (N, features) one."""
     return 1 if x.dim() == 4 else x.dim() - 1
 
 

@@ -41,11 +41,15 @@ def _blocked_kernel(weight: torch.Tensor) -> torch.Tensor:
     kernel with padding 3: output o reads input rows 2o + a - 3 (a = 0..6),
     which is block row o + q - 2 at parity k with a + 1 = 2q + k, so a zero
     tap in front of the 7 makes 4 blocks of 2. Channels are (ki, kj, c)
-    with c fastest, the order of ``space_to_depth``."""
+    with c fastest, the order of ``space_to_depth``. The kernel keeps
+    ``weight``'s memory layout, channels_last or contiguous, as the
+    victim's other convolutions do."""
     f, c = weight.shape[:2]
     w = F.pad(weight, (1, 0, 1, 0)).reshape(f, c, 4, 2, 4, 2)  # (f, c, qi, ki, qj, kj)
     w = w.permute(0, 3, 5, 1, 2, 4).reshape(f, 4 * c, 4, 4)
-    return w.contiguous(memory_format=torch.channels_last)
+    if weight.is_contiguous(memory_format=torch.channels_last):
+        return w.contiguous(memory_format=torch.channels_last)
+    return w
 
 
 def s2d_stem(xb: torch.Tensor, conv: nn.Conv2d, bn: nn.Module) -> torch.Tensor:

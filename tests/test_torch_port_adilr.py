@@ -426,15 +426,18 @@ def _counting(jv):
     return dataclasses.replace(jv, apply_fn=apply_fn), calls
 
 
-def test_class_learns_serves_and_shares_its_artifact_with_jax(setup, tmp_path, jax_start,
+def test_class_learns_serves_and_shares_its_artifact_with_jax(setup, f64, tmp_path, jax_start,
                                                               monkeypatch):
     """``version="deterministic"`` from the JAX start: the artifacts agree,
     each package serves from the other's, and the supervised forward is one
     ``fused_perturb`` launch at eps = budget. Served from the JAX-learned
     artifact (1e-5 from the port's), one f32 line search of
     ``learn_coding_vectors`` takes a different number of halvings in the two
-    packages (ROADMAP.md queue 3); there the float64 trajectory tests are
-    the parity check."""
+    packages (ROADMAP.md queue 3), and with the port's fp32 victim in
+    contiguous NCHW one does from the port-learned one too (the port 23
+    halvings, the JAX package 21). Where the counts differ, the same search
+    from that artifact's D runs in float64 in both packages: equal
+    forwards, codes within 1e-8."""
     jv, pv, x, _ = setup
     jvc, calls = _counting(jv)
     labels = np.asarray(jv.predict(x))
@@ -467,8 +470,20 @@ def test_class_learns_serves_and_shares_its_artifact_with_jax(setup, tmp_path, j
         assert 0 <= float(adv_p.min()) and float(adv_p.max()) <= 1
         if len(calls) == 2 * p.stats["iterations"] + p.stats["halvings"]:
             np.testing.assert_allclose(adv_p.numpy(), adv_j, atol=1e-5)
-        else:
-            assert root == "jax"
+            continue
+        d = {"port": a_p, "jax": a_j}[root]["d"]
+        with jax.enable_x64(True):
+            _forwards(f64)
+            vj = np.asarray(jr.learn_coding_vectors(
+                f64["jax_apply"], f64["vars"], jnp.asarray(d, jnp.float64),
+                jnp.asarray(x, jnp.float64), labels, j.cfg))
+        stats = {}
+        vp = pr.learn_coding_vectors(f64["port_apply"], _d64(d), _d64(x),
+                                     torch.tensor(labels), p.cfg, stats=stats)
+        jax_fwd, port_fwd = _forwards(f64)
+        assert jax_fwd == port_fwd == 2 * stats["iterations"] + stats["halvings"]
+        assert np.any(vj != 0)
+        np.testing.assert_allclose(vp.numpy(), vj, atol=1e-8)
     assert eps == [10 / 255] * 2
 
 

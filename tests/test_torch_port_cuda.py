@@ -4,7 +4,8 @@ fused_adamw_project against its twin (p and mu within 1e-6, nu within 1e-6
 relative: elementwise fp32 in the twin's order), their launch counts, the
 wrappers' refusals, three training steps on the card against the CPU, and
 every victim family's logits and CW input gradient on the card against the
-CPU (within 1e-4); the bf16 mixed precision on the card against the CPU,
+CPU (within 1e-4), and an fp32 ResNet-50 in NCHW launching none of cuDNN's
+layout transposes; the bf16 mixed precision on the card against the CPU,
 the bf16 products' fp32 accumulator, and data-parallel learning at world
 size 1 over NCCL against its serial replay, and a sharded checkpoint of
 CUDA tensors at world size 1 over NCCL (bit-equal); DeepFool and a UAP-PGD epoch on
@@ -322,6 +323,66 @@ def test_inception_average_pool_gradient_on_the_card(cuda, side):
         (grad,) = torch.autograd.grad(_avg_pool(xt), xt, grad_out.to(dev))
         grads.append(grad.cpu())
     assert float((grads[0] - grads[1]).abs().max()) <= 1e-6
+
+
+def _device_kernels(fn) -> list:
+    """The names of the kernels, copies and memsets ``fn`` runs on the card,
+    by ``torch.profiler``; fails where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() != torch.autograd.DeviceType.CPU and not e.is_user_annotation()]
+    assert names, "the profiler saw no work on the card"
+    return names
+
+
+def test_fp32_victim_runs_no_layout_transposes_on_the_card(cuda):
+    # An fp32 ResNet-50 in contiguous NCHW hands cuDNN the layout of its
+    # fp32 kernels: a forward and input gradient at 224x224 launch none of
+    # the nhwcToNchw / nchwToNhwc transposes that cuDNN wraps around each
+    # fp32 convolution of channels_last tensors (the count of convolutions
+    # the layout failed to reach). The same weights forced into
+    # channels_last do launch them, and their logits agree within 1e-5 of
+    # the largest; a bf16 victim's convolutions take channels_last tensors.
+    from torch.overrides import TorchFunctionMode
+
+    victim = create_model("resnet50", device=cuda, seed=0)
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+    out = {}
+
+    def pass_():
+        xt = x.clone().requires_grad_(True)
+        logits = victim(xt)
+        torch.autograd.grad(logits.square().sum(), xt)
+        out[victim.memory_format] = logits.detach()
+
+    def transposes(names):
+        return [n for n in names if "nhwcToNchw" in n or "nchwToNhwc" in n]
+
+    pass_()  # cuDNN's first uses outside the trace
+    assert transposes(_device_kernels(pass_)) == []
+    victim.net.to(memory_format=torch.channels_last)
+    pass_()
+    assert transposes(_device_kernels(pass_)), "channels_last fp32 ran no transposes"
+    nchw, cl = out[torch.contiguous_format], out[torch.channels_last]
+    assert float((nchw - cl).abs().max()) <= 1e-5 * float(cl.abs().max())
+
+    class Convolutions(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.nn.functional.conv2d:
+                inputs.append(args[0])
+            return func(*args, **(kwargs or {}))
+
+    inputs = []
+    bf16 = create_model("resnet50", device=cuda, seed=0, dtype=torch.bfloat16)
+    with torch.no_grad(), Convolutions():
+        bf16(x)
+    assert len(inputs) == 53
+    assert all(t.dtype == torch.bfloat16 and t.is_contiguous(memory_format=torch.channels_last)
+               for t in inputs)
 
 
 ULP = 2.0 ** -8  # one bf16 rounding, relative (tests/test_torch_port_mixed.py)

@@ -100,7 +100,7 @@ def test_s2d_densenet_matches_jax_and_the_plain_stem():
     assert "S2DStem_0" in variables["params"]
     net = DenseNet(stem_s2d=True, **kw)
     net.load_state_dict(state_dict_from_flax(variables))
-    shallow = VictimModel("densenet", net.to(memory_format=torch.channels_last), 32).eval()
+    shallow = VictimModel("densenet", net, 32).eval()
     shallow.requires_grad_(False)
     apply = jax.jit(lambda xx: module.apply(variables, (xx - MEAN) / STD))
     _check_logits_and_gradient(apply, shallow, x)

@@ -115,7 +115,7 @@ def test_shallow_densenet_matches_jax():
     variables = _variables(module, 32, seed=0)
     net = DenseNet(**kw)
     net.load_state_dict(state_dict_from_flax(variables))
-    pv = VictimModel("densenet", net.to(memory_format=torch.channels_last), 32).eval()
+    pv = VictimModel("densenet", net, 32).eval()
     pv.requires_grad_(False)
     assert list(dict(net.features.named_children())) == [
         "conv0", "norm0", "relu0", "pool0", "denseblock1", "transition1", "denseblock2", "norm5"]
