@@ -2,17 +2,18 @@
 
 Port of ``dl_attack_on_imagenet_tpu/models/__init__.py``, with the same
 registry: the ResNets, DenseNet, GoogLeNet, Inception-v3, MobileNetV2, VGG,
-ViT and the tiny test CNN. A name picks a classifier, the ImageNet
-normalization is prepended, and the result is a frozen function from [0, 1]
-NHWC images to logits: eval mode, no weight gradients, and every
-convolution in the memory layout that its dtype's kernels take
-(:func:`victim_memory_format`): contiguous NCHW for fp32, ``channels_last``
-for bf16. The ResNets, DenseNet and GoogLeNet take ``stem_s2d`` (their
-stem on 2x2 space-to-depth blocks); :func:`blocked_twin` gives such a
-victim's twin over the blocked images themselves. ``dtype=torch.bfloat16``
-builds a bf16 victim: fp32 parameters, bf16 compute layer by layer as the
-JAX package's ``dtype=jnp.bfloat16`` victim (``models.layers``), bf16
-logits.
+ViT and the tiny test CNN; the port adds Swin-B (``swin_b``, fp32 only) and
+its tiny test twin (``swin_tiny``), which the JAX package lacks. A name
+picks a classifier, the ImageNet normalization is prepended, and the result
+is a frozen function from [0, 1] NHWC images to logits: eval mode, no
+weight gradients, and every convolution in the memory layout that its
+dtype's kernels take (:func:`victim_memory_format`): contiguous NCHW for
+fp32, ``channels_last`` for bf16. The ResNets, DenseNet and GoogLeNet take
+``stem_s2d`` (their stem on 2x2 space-to-depth blocks); :func:`blocked_twin`
+gives such a victim's twin over the blocked images themselves.
+``dtype=torch.bfloat16`` builds a bf16 victim: fp32 parameters, bf16
+compute layer by layer as the JAX package's ``dtype=jnp.bfloat16`` victim
+(``models.layers``), bf16 logits.
 """
 
 from __future__ import annotations
@@ -32,12 +33,14 @@ from .layers import (IMAGENET_MEAN, IMAGENET_STD, Normalize, depth_to_space, res
                      space_to_depth)
 from .mobilenet import mobilenet_v2
 from .resnet import resnet18, resnet34, resnet50
+from .swin import ShiftedWindowAttention, swin_b, swin_tiny
 from .tiny import tiny_cnn
 from .vgg import vgg11, vgg16, vgg19
 from .vit import SelfAttention, VisionTransformer, vit_b16, vit_tiny
 
-# name -> (constructor, default input size), the JAX package's registry; the
-# short aliases are the reference CLI's names ('resnet' means resnet18).
+# name -> (constructor, default input size), the JAX package's registry and
+# the port's Swin; the short aliases are the reference CLI's names ('resnet'
+# means resnet18).
 MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet": (resnet18, 224),
     "resnet18": (resnet18, 224),
@@ -59,6 +62,8 @@ MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "vit_b16": (vit_b16, 224),
     "vit_tiny": (vit_tiny, 224),
     "tiny": (tiny_cnn, 32),
+    "swin_b": (swin_b, 224),
+    "swin_tiny": (swin_tiny, 64),
 }
 
 
@@ -169,8 +174,9 @@ class VictimModel(nn.Module):
 def _init_weights(net: nn.Module, generator: torch.Generator, conv_fan: str) -> None:
     """Seeded random weights (no pretrained weights ship with the repo): He
     normal convolutions over ``conv_fan`` ("fan_out" or "fan_in"), BatchNorm
-    and LayerNorm at 1 and 0, linear layers N(0, 0.01), ViT's attention
-    Xavier-uniform, its class token 0 and its position embedding
+    and LayerNorm at 1 and 0, linear layers N(0, 0.01) (their biases, where
+    they have one, 0), ViT's attention Xavier-uniform, its class token 0 and
+    its position embedding N(0, 0.02), Swin's relative-position bias tables
     N(0, 0.02)."""
     with torch.no_grad():
         for mod in net.modules():
@@ -184,13 +190,16 @@ def _init_weights(net: nn.Module, generator: torch.Generator, conv_fan: str) -> 
                 mod.bias.zero_()
             elif isinstance(mod, nn.Linear):
                 nn.init.normal_(mod.weight, std=0.01, generator=generator)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, SelfAttention):
                 nn.init.xavier_uniform_(mod.in_proj_weight, generator=generator)
                 mod.in_proj_bias.zero_()
             elif isinstance(mod, VisionTransformer):
                 mod.class_token.zero_()
                 nn.init.normal_(mod.encoder.pos_embedding, std=0.02, generator=generator)
+            elif isinstance(mod, ShiftedWindowAttention):
+                nn.init.normal_(mod.relative_position_bias_table, std=0.02, generator=generator)
 
 
 def create_model(
@@ -294,5 +303,5 @@ def blocked_twin(victim: VictimModel) -> Optional[VictimModel]:
 __all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size", "blocked_twin",
            "create_model", "densenet121", "densenet169", "depth_to_space", "fast_victim_kwargs",
            "googlenet", "inception_v3", "mobilenet_v2", "resnet18", "resnet34", "resnet50",
-           "space_to_depth", "tiny_cnn", "vgg11", "vgg16", "vgg19", "victim_memory_format",
-           "vit_b16", "vit_tiny"]
+           "space_to_depth", "swin_b", "swin_tiny", "tiny_cnn", "vgg11", "vgg16", "vgg19",
+           "victim_memory_format", "vit_b16", "vit_tiny"]

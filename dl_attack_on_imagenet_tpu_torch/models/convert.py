@@ -16,7 +16,8 @@ unchanged: the result loads into the port's build with or without
 
 ``load_torch_checkpoint`` loads a torchvision ``state_dict`` saved with
 ``torch.save`` into a port victim, less the auxiliary heads that the
-victims omit (GoogLeNet's ``aux1``/``aux2``, Inception's ``AuxLogits``).
+victims omit (GoogLeNet's ``aux1``/``aux2``, Inception's ``AuxLogits``) and
+Swin's relative-position index buffers, which the port computes.
 
 ``train_state_from_jax`` takes a JAX ``AdilState`` with numpy leaves and
 returns the port's ``TrainState``, so that both packages can start training
@@ -301,10 +302,18 @@ def load_torch_checkpoint(path: str, victim, vit: bool = False):
     """Load a ``torch.save``d torchvision ``state_dict`` into ``victim`` in
     place and return it. The port's modules use torchvision's names, so no
     conversion is needed; the auxiliary heads' keys, which the victims do
-    not have, are dropped first, as the JAX package drops them. ``vit``, the
-    JAX package's switch to its ViT converter, is accepted and changes
-    nothing: the port's ViT has torchvision's names too."""
+    not have, are dropped first, as the JAX package drops them, and so is
+    each Swin block's ``relative_position_index``, a fixed buffer that the
+    port computes itself (one that differs from the port's raises a
+    ``ValueError``). ``vit``, the JAX package's switch to its ViT converter,
+    is accepted and changes nothing: the port's ViT has torchvision's names
+    too."""
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    own = dict(victim.net.named_buffers())
+    for k in [k for k in state_dict if k.endswith(".relative_position_index")]:
+        index = state_dict.pop(k)
+        if k not in own or not torch.equal(index.cpu(), own[k].cpu()):
+            raise ValueError(f"{k} is not the port's relative-position index")
     victim.net.load_state_dict({
         k: v for k, v in state_dict.items()
         if not any(k.startswith(p) or f".{p}" in k for p in _AUX_PREFIXES)})

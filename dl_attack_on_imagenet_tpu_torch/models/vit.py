@@ -7,9 +7,9 @@ map, with the same weights), a class token, learned position embeddings
 sized from ``input_size``, pre-norm encoder blocks with LayerNorm eps 1e-6
 (flax's, and torchvision's ViT's), exact erf GELU, and the head on the
 class token. Attention is written out in fp32, as flax computes it:
-softmax(q k^T / sqrt(head_dim)) v, with q, k and v packed in
-``in_proj_weight``. The names are torchvision's (``conv_proj``,
-``class_token``, ``encoder.pos_embedding``,
+softmax(q k^T / sqrt(head_dim)) v (:func:`attend`, which Swin shares), with
+q, k and v packed in ``in_proj_weight``. The names are torchvision's
+(``conv_proj``, ``class_token``, ``encoder.pos_embedding``,
 ``encoder.layers.encoder_layer_i.{ln_1, self_attention, ln_2, mlp.0,
 mlp.3}``, ``encoder.ln``, ``heads.head``).
 
@@ -112,6 +112,19 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q kᵀ / sqrt(head_dim) + bias) v over the last two axes, in
+    the inputs' dtype: ViT's fp32 attention, and Swin's, whose ``bias``
+    (the relative-position bias, with the shifted windows' mask) is
+    broadcast over the leading axes of the scores (``bias.shape`` has to
+    divide them: (windows, heads, n, n) or (1, heads, n, n))."""
+    scores = (q / math.sqrt(q.shape[-1])) @ k.transpose(-2, -1)
+    if bias is not None:
+        scores = (scores.view(-1, *bias.shape) + bias).view(scores.shape)
+    return torch.softmax(scores, dim=-1) @ v
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention under ``nn.MultiheadAttention``'s parameter
     names, computed without a fused kernel, in ``compute_dtype`` where set
@@ -133,7 +146,7 @@ class SelfAttention(nn.Module):
         if dt is None:
             qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
             q, k, v = qkv.view(n, length, 3, self.num_heads, head_dim).permute(2, 0, 3, 1, 4)
-            weights = torch.softmax((q / math.sqrt(head_dim)) @ k.transpose(-2, -1), dim=-1)
+            out = attend(q, k, v)
         else:
             # Flax projects q, k and v by three dense layers, so x's
             # gradient is three bf16 products summed in bf16.
@@ -143,8 +156,8 @@ class SelfAttention(nn.Module):
                 .transpose(1, 2)
                 for w, b in zip(self.in_proj_weight.chunk(3), self.in_proj_bias.chunk(3)))
             scores = (q / _const(math.sqrt(head_dim), q)) @ k.transpose(-2, -1)
-            weights = _SoftmaxLowp.apply(scores)
-        out = (weights @ v).transpose(1, 2).reshape(n, length, dim)
+            out = _SoftmaxLowp.apply(scores) @ v
+        out = out.transpose(1, 2).reshape(n, length, dim)
         return self.out_proj(out)
 
 

@@ -22,17 +22,27 @@ the profiler sees it also opens a profiler range of the same name: torch's
 spends that cost while the card waits. Without a profiler it reads that one
 flag and does nothing else.
 
+Device clock. ``annotate(name, device=True)`` also records, while
+recording, a CUDA event pair on the current stream around the span's
+forward; the span's ``backward(inp, out)`` adds a pair around its share of
+an input gradient, from the moment ``out``'s gradient is ready to the
+moment ``inp``'s is (hooks on the two tensors, where both take part in
+one). ``device_totals()`` synchronises and gives the device seconds by
+name, forward and backward apart. A pair measures the card's time from one
+event to the other, gaps included.
+
 ``spans()`` gives the recorded spans, each with its self time (its duration
 less what its children cover), ``totals()`` their count, total seconds and
-self seconds by name; ``reset()`` clears both. Spans named ``sync/<site>``
-are the program's blocking host reads of device data. ``trace`` writes the
-spans of the threads the profiler did not see into its ``trace.json``, on
-the trace's own time base.
+self seconds by name; ``reset()`` clears them and the event pairs. Spans
+named ``sync/<site>`` are the program's blocking host reads of device data.
+``trace`` writes the spans of the threads the profiler did not see into its
+``trace.json``, on the trace's own time base.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -71,14 +81,44 @@ class Total(NamedTuple):
     self_s: float
 
 
+class DeviceTotal(NamedTuple):
+    """The device-timed spans of one name: how many forwards were timed,
+    and the card's seconds in their forwards and in their backwards."""
+
+    count: int
+    forward_s: float
+    backward_s: float
+
+
+def _event() -> torch.cuda.Event:
+    """A timing event recorded on the current stream."""
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _mark(pair: list, at: int, grad) -> None:
+    """A gradient hook: record ``pair[at]`` as the gradient is ready."""
+    pair[at] = _event()
+
+
+class _NoSpan:
+    """What ``with annotate(...) as span`` gives without a profiler."""
+
+    @staticmethod
+    def backward(inp: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        return out
+
+
 class _Open:
     """A span while it is open: the context manager ``annotate`` returns
     while recording."""
 
-    __slots__ = ("rec", "name", "unit", "id", "parent", "twin", "start", "child_ns")
+    __slots__ = ("rec", "name", "unit", "id", "parent", "twin", "start", "child_ns", "device",
+                 "begin")
 
-    def __init__(self, rec: "Recorder", name: str, unit):
-        self.rec, self.name, self.unit = rec, name, unit
+    def __init__(self, rec: "Recorder", name: str, unit, device: bool = False):
+        self.rec, self.name, self.unit, self.device = rec, name, unit, device
 
     def __enter__(self):
         stack = self.rec._local_state().stack
@@ -92,11 +132,14 @@ class _Open:
             self.twin.__enter__()
         self.child_ns = 0
         stack.append(self)
+        self.begin = _event() if self.device else None
         self.start = time.time_ns()
         return self
 
     def __exit__(self, *exc):
         end = time.time_ns()
+        if self.begin is not None:
+            self.rec._pairs.append((self.name, "forward", [self.begin, _event()]))
         if self.twin is not None:
             self.twin.__exit__(*exc)
         state = self.rec._local_state()
@@ -108,6 +151,17 @@ class _Open:
                                     self.twin is not None))
         return False
 
+    def backward(self, inp: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """With ``device``, time the span's share of an input gradient on the
+        card, from ``out``'s gradient to ``inp``'s, where both take part in
+        one. Returns ``out``."""
+        if self.device and torch.is_grad_enabled() and inp.requires_grad and out.requires_grad:
+            pair = [None, None]
+            self.rec._pairs.append((self.name, "backward", pair))
+            out.register_hook(functools.partial(_mark, pair, 0))
+            inp.register_hook(functools.partial(_mark, pair, 1))
+        return out
+
 
 class Recorder:
     """The spans of a process, from every thread. A span is appended as it
@@ -117,6 +171,7 @@ class Recorder:
         self._local = threading.local()
         self._ids = itertools.count()
         self._spans: List[Span] = []
+        self._pairs: List[tuple] = []  # (name, "forward" | "backward", [start, end])
 
     def _local_state(self):
         """The calling thread's open spans (``stack``, innermost last) and
@@ -139,21 +194,37 @@ class Recorder:
             t[2] += s.self_ns
         return {name: Total(n, total / 1e9, own / 1e9) for name, (n, total, own) in sums.items()}
 
+    def device_totals(self) -> Dict[str, DeviceTotal]:
+        pairs = list(self._pairs)
+        if pairs:
+            torch.cuda.synchronize()
+        sums: Dict[str, List[float]] = {}
+        for name, phase, (start, end) in pairs:
+            t = sums.setdefault(name, [0, 0.0, 0.0])
+            if phase == "forward":
+                t[0] += 1
+            if start is not None and end is not None:  # a backward that ran
+                t[1 if phase == "forward" else 2] += start.elapsed_time(end) / 1e3
+        return {name: DeviceTotal(*t) for name, t in sums.items()}
+
     def reset(self) -> None:
         self._spans.clear()
+        self._pairs.clear()
 
 
 _RECORDER = Recorder()
-_OFF = contextlib.nullcontext()
+_OFF = contextlib.nullcontext(_NoSpan())
 
 
-def annotate(name: str, unit=None):
+def annotate(name: str, unit=None, device: bool = False):
     """A named span of the program (see the module): recorded while a
     profiler session is on, a no-op otherwise. ``unit``, a tuple of parts,
-    starts a unit of work that the spans inside it belong to."""
+    starts a unit of work that the spans inside it belong to. ``device``
+    (for work on the card only) also times it on the card; ``with ... as
+    span`` gives ``span.backward(inp, out)`` in either case."""
     if not _torch_profiler._is_profiler_enabled:
         return _OFF
-    return _Open(_RECORDER, name, unit)
+    return _Open(_RECORDER, name, unit, device)
 
 
 def spans() -> List[Span]:
@@ -166,8 +237,14 @@ def totals() -> Dict[str, Total]:
     return _RECORDER.totals()
 
 
+def device_totals() -> Dict[str, DeviceTotal]:
+    """The card's seconds in the device-timed spans, by name, forward and
+    backward apart, after a synchronisation."""
+    return _RECORDER.device_totals()
+
+
 def reset() -> None:
-    """Forget the recorded spans and their totals."""
+    """Forget the recorded spans, their totals and the event pairs."""
     _RECORDER.reset()
 
 

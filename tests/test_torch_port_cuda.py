@@ -18,8 +18,10 @@ the card against the CPU with the same draws (1e-4, equal decisions), and
 OnePixel's painting of duplicate coordinates; the space-to-depth stems on
 the card against the CPU and the plain stem (1e-4), both kernels on the
 blocked column order, pipelined blocked learning against the serial loop,
-and ``cli.generate`` on the card against the CPU. Every test here needs a
-GPU and skips without one.
+and ``cli.generate`` on the card against the CPU; Swin-B's device-timed
+spans against the device time of a whole pass, and its DDrague batch's
+blocking reads against ViT-B/16's. Every test here needs a GPU and skips
+without one.
 
 This file imports neither JAX nor the JAX package (the grid's tests take
 their runs from ``chip_smoke.py``, which imports neither), so it also runs
@@ -288,7 +290,7 @@ def test_run_experiment_on_the_card_matches_the_cpu(cuda, tmp_path):
 
 @pytest.mark.parametrize("name,size", [("densenet121", 32), ("mobilenet_v2", 32),
                                        ("googlenet", 32), ("inception_v3", 75),
-                                       ("vgg11", 32), ("vit_tiny", 32)])
+                                       ("vgg11", 32), ("vit_tiny", 32), ("swin_tiny", 64)])
 def test_victim_family_on_the_card_matches_the_cpu(cuda, name, size):
     # Logits and the CW-loss input gradient within 1e-4: cuDNN's depthwise,
     # grouped and padded-pool kernels sum in other orders than the CPU.
@@ -877,3 +879,81 @@ def test_generate_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert [(r["step"], r["n"], r["fooling"]) for r in card] == \
         [(r["step"], r["n"], r["fooling"]) for r in cpu]
     np.testing.assert_allclose([r["mse"] for r in card], [r["mse"] for r in cpu], rtol=5e-5)
+
+
+_SWIN_TOP = ("victim/swin/embed", "victim/swin/attention", "victim/swin/mlp", "victim/swin/merge",
+             "victim/swin/head")
+
+
+def test_swin_spans_cover_a_pass_on_the_card(cuda):
+    # One Swin-B forward and input gradient at batch 8, traced: the device
+    # seconds of the victim's top-level spans (the stem, each block's
+    # attention and MLP halves, the merges, the head), forward and
+    # backward, add up to within 5% of the pass's device time between CUDA
+    # events around it. A sleep kernel first holds the card while the host
+    # queues the pass, so that the host's time between spans is not idle
+    # time of the card.
+    from torch.profiler import ProfilerActivity, profile
+
+    from dl_attack_on_imagenet_tpu_torch.utils import profiling
+
+    victim = create_model("swin_b", device=cuda, seed=0)
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def pass_():
+        xt = x.clone().requires_grad_(True)
+        torch.autograd.grad(victim(xt).square().sum(), xt)
+
+    pass_()  # first uses outside the count
+    torch.cuda.synchronize()
+    profiling.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda._sleep(200_000_000)
+            start.record()
+            pass_()
+            end.record()
+            torch.cuda.synchronize()
+        whole = start.elapsed_time(end) / 1e3
+        totals = profiling.device_totals()
+    finally:
+        profiling.reset()
+    assert totals["victim/swin/attention"].count == 24 and totals["victim/swin/shift"].count == 48
+    assert totals["victim/swin/merge"].count == 3
+    covered = sum(totals[n].forward_s + totals[n].backward_s for n in _SWIN_TOP)
+    shares = {n: (t.forward_s + t.backward_s) / whole for n, t in totals.items()}
+    print(f"swin_b b8: pass {whole * 1e3:.3f} ms, top-level spans {covered * 1e3:.3f} ms; "
+          f"shares {shares}")
+    assert all(t.backward_s > 0 for t in totals.values())
+    assert abs(covered - whole) <= 0.05 * whole
+
+
+@pytest.mark.parametrize("name", ["vit_b16", "swin_b"])
+def test_a_ddrague_batch_reads_as_often_on_swin_as_on_vit(cuda, tmp_path, name):
+    # A DDrague call of 30 steps at 224x224 reads the card 31 times on either
+    # victim: D's pseudo-inverse once, each step's max |dz| once.
+    from torch.profiler import ProfilerActivity, profile
+
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache, profiling
+
+    victim = create_model(name, device=cuda, seed=0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cache = ArtifactCache(str(tmp_path))
+    cache.save({"d": torch.rand((100, 224, 224, 3), generator=g, device=cuda) * 2 - 1},
+               "ImageNet", model=name)
+    attack = ADIL(victim, n_atoms=100, batch_size=4, cache=cache, model_name=name,
+                  loss="logits", steps_inference=30)
+    x = torch.rand((4, 224, 224, 3), generator=g, device=cuda)
+    labels = torch.zeros(4, dtype=torch.long, device=cuda)
+    attack(x, labels)  # the first call's first uses outside the count
+    torch.cuda.synchronize()
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            attack(x, labels)
+        syncs = {n: t.count for n, t in profiling.totals().items() if n.startswith("sync/")}
+    finally:
+        profiling.reset()
+    assert syncs == {"sync/dict_pinv": 1, "sync/step_delta": 30}

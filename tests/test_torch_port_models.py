@@ -88,10 +88,15 @@ def test_seeded_weights_are_reproducible():
 
 
 def test_registry_and_unported_names():
-    assert {k: size for k, (_, size) in MODEL_REGISTRY.items()} == {
-        k: size for k, (_, size) in JAX_REGISTRY.items()}
-    for key, (ctor, _) in MODEL_REGISTRY.items():
-        assert ctor.__name__ == JAX_REGISTRY[key][0].__name__
+    """The JAX registry's names, sizes and constructors, and exactly the
+    port's own Swin besides (which the JAX package lacks)."""
+    assert set(MODEL_REGISTRY) - set(JAX_REGISTRY) == {"swin_b", "swin_tiny"}
+    shared = {k: size for k, (_, size) in MODEL_REGISTRY.items() if k in JAX_REGISTRY}
+    assert shared == {k: size for k, (_, size) in JAX_REGISTRY.items()}
+    for key in shared:
+        assert MODEL_REGISTRY[key][0].__name__ == JAX_REGISTRY[key][0].__name__
+    assert {k: size for k, (_, size) in MODEL_REGISTRY.items() if k not in JAX_REGISTRY} == {
+        "swin_b": 224, "swin_tiny": 64}
     with pytest.raises(ValueError, match="unknown model 'alexnet'"):
         create_model("alexnet", device="cpu")
 
