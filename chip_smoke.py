@@ -36,7 +36,11 @@ phase, and exits non-zero if any phase fails:
    224x224; supervised DDrague cut to 5 steps and 5 unsupervised trials),
    timed and traced like phase 5; then holds ``fused_perturb`` against its
    twin at Inception's native 299x299 (M = 268203, odd: the kernel's scalar
-   instance) and serves one Inception batch there;
+   instance) and serves one Inception batch there; then one Swin-B batch of
+   64 at 224x224 at the benchmark cell's settings (supervised DDrague, 30
+   steps), timed and traced the same way, with the window-attention
+   kernel's launches held to 24 forwards a victim pass and 24 backwards a
+   pass that records an input gradient, in every run;
 8. runs the experiment of ``cli.demo`` through ``run_experiment`` on its
    default victim, DenseNet-121, at 224x224 (K=100, 2 epochs of 64 images,
    val and test of 2 and 5 images, 100 DDrague steps a served batch), then
@@ -438,6 +442,81 @@ def check_fused_adamw_project(dev) -> dict:
             "bound_share": bound_ms / ms}
 
 
+# Swin-B's stages at 224² as (map side, channels, heads, blocks); 7x7 windows
+# of 49 tokens, head dim 32; every stage but the last has shifted blocks.
+SWIN_B_STAGES = ((56, 128, 4, 2), (28, 256, 8, 2), (14, 512, 16, 18), (7, 1024, 32, 2))
+
+
+def check_swin_window_attention(dev, n: int = 64) -> dict:
+    """The Swin window-attention kernel against its plain twin at each of
+    Swin-B's stages at batch ``n`` (shifted blocks where the stage has them):
+    output within 1e-5 of its largest value, dq, dk and dv each within 1e-4
+    in relative l2. Times the kernel's forward, and its forward with the
+    input gradient, beside the twin's and the bound (the benchmark reader's
+    count, ``swin_window_attention_roofline``), a block and a pass, with
+    the host ahead of the card (the input gradient's autograd costs the host
+    about as much as the card's work at the small stages). Its launches are
+    not the main path's, so the row's counts come from ``serve_swin``."""
+    from dl_attack_on_imagenet_tpu_torch.models.swin import window_attention_reference
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
+    from h100bench.metrics.swin_window_attention_roofline import pass_seconds
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, max_err = [], 0.0
+    for side, channels, heads, blocks in SWIN_B_STAGES:
+        shift = 3 if side > 7 else 0
+        qkv = torch.randn((n, side, side, 3 * channels), generator=g, device=dev)
+        table = torch.randn((13 * 13, heads), generator=g, device=dev) * 0.02
+        grad_out = torch.randn((n, side, side, channels), generator=g, device=dev)
+        x = qkv.clone().requires_grad_(True)
+
+        def forward(fn):
+            with torch.no_grad():
+                return fn(qkv, table, 7, shift, shift, heads)
+
+        def both(fn):
+            return torch.autograd.grad(fn(x, table, 7, shift, shift, heads), x, grad_out)[0]
+
+        out, want = forward(swin_window_attention), forward(window_attention_reference)
+        grad, want_grad = both(swin_window_attention), both(window_attention_reference)
+        torch.cuda.synchronize()
+        out_err = float((out - want).abs().max() / want.abs().max())
+        grad_err = max(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+                       for a, b in zip(grad.chunk(3, -1), want_grad.chunk(3, -1)))
+        del out, want, grad, want_grad
+        if not (out_err <= 1e-5 and grad_err <= 1e-4):
+            raise AssertionError(f"swin_window_attention disagrees with its twin at map {side}: "
+                                 f"output {out_err}, gradients {grad_err}")
+        max_err = max(max_err, out_err)
+        row = {"side": side, "channels": channels, "heads": heads, "shift": shift,
+               "blocks": blocks, "out_err": out_err, "grad_err": grad_err,
+               "fwd_ms": _time_device_ms(lambda: forward(swin_window_attention), 20)[0],
+               "ms": _time_device_ms(lambda: both(swin_window_attention), 20)[0],
+               "plain_fwd_ms": _time_device_ms(lambda: forward(window_attention_reference), 10)[0],
+               "plain_ms": _time_device_ms(lambda: both(window_attention_reference), 10)[0],
+               "bound_fwd_ms": 1e3 * pass_seconds(n * side * side * channels, 49, False),
+               "bound_ms": 1e3 * pass_seconds(n * side * side * channels, 49, True)}
+        rows.append(row)
+        print(f"swin_window_attention at b{n}, map {side}, C {channels}, {heads} heads, shift "
+              f"{shift}: forward {row['fwd_ms']:.4f} ms (bound {row['bound_fwd_ms']:.4f}), "
+              f"forward and input gradient {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+              f"bytes; {row['bound_ms'] / row['ms']:.1%}), twin {row['plain_fwd_ms']:.4f} / "
+              f"{row['plain_ms']:.4f} ms; output err {out_err:.2e}, gradient err {grad_err:.2e}")
+        del qkv, x, grad_out
+    total = {k: sum(r[k] * r["blocks"] for r in rows)
+             for k in ("fwd_ms", "ms", "plain_fwd_ms", "plain_ms", "bound_fwd_ms", "bound_ms")}
+    print(f"swin_window_attention, a Swin-B pass at b{n} (24 blocks): forward "
+          f"{total['fwd_ms']:.3f} ms, with the input gradient {total['ms']:.3f} ms "
+          f"(bound {total['bound_ms']:.3f} ms, {total['bound_ms'] / total['ms']:.1%}); twin "
+          f"{total['plain_fwd_ms']:.3f} / {total['plain_ms']:.3f} ms; no single PyTorch call "
+          "computes the function (the roll, partition, bias and mask), so no library time")
+    return {"name": "swin_window_attention", "route": "cuda",
+            "source": "dl_attack_on_imagenet_tpu_torch/csrc/swin_window_attention.cu",
+            "replaces": None, "launches": 0, "backward_launches": 0, "max_abs_err": max_err, "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "bound_share": total["bound_ms"] / total["ms"], "stages": rows}
+
+
 def check_small_against_cpu(dev) -> None:
     """The served path on the card against the plain path on the CPU, on the
     tiny victim at a small size (atol 1e-4 after 5 AdamW steps: cuDNN and
@@ -556,7 +635,7 @@ def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
         return
     kernels.sort(key=lambda row: -row[1])
     ours = []
-    for name in ("fused_perturb", "fused_adamw_project"):
+    for name in ("fused_perturb", "fused_adamw_project", "swin_window_attention"):
         ms = sum(ms for key, ms, _ in kernels if name in key)
         count = sum(c for key, _, c in kernels if name in key)
         each = f", {ms / count:.4f} ms a launch in place x{count}" if count else ""
@@ -571,8 +650,10 @@ def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
 def _zero_counts() -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
     from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
 
     fused_perturb.launches = fused_adamw_project.launches = 0
+    swin_window_attention.launches = swin_window_attention.backward_launches = 0
 
 
 def _serve_mode(run, images, victim, label: str, budget: bool) -> int:
@@ -706,6 +787,58 @@ def serve_zoo(dev, zoo=ZOO, size: int = 224, native: int = 299, n: int = 64):
                   f"{built:.1f} s of it to build the victim and its inputs")
             del victim, images
     return launches, max_err
+
+
+def serve_swin(dev, n: int = 64, steps: int = 30, blocks: int = 24) -> tuple:
+    """One served batch of ``n`` on Swin-B at 224x224 at the benchmark
+    cell's settings (K=100, eps 8/255 l∞, CW loss, supervised DDrague of
+    ``steps`` steps), warmed up, timed and traced as in ``serve``, the
+    victim's passes counted by a forward hook on its network. Every run must
+    launch the window-attention kernel once a block forward in each pass,
+    and once a block backward in each pass that records an input gradient.
+    Returns (fused_perturb launches, window-attention forward launches,
+    backward launches) of the timed run, every launch count set to 0 just
+    before it. (The keyword arguments shrink the run for a rehearsal.)"""
+    from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
+    from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
+
+    passes, runs = [], []  # runs: (passes, input-gradient passes, counts before, counts after)
+    counts = lambda: (swin_window_attention.launches, swin_window_attention.backward_launches)
+
+    def record(module, args, out):
+        passes.append(bool(torch.is_grad_enabled() and args[0].requires_grad))
+
+    with tempfile.TemporaryDirectory() as root:
+        cache = ArtifactCache(root)
+        victim, images = _served_inputs(dev, "swin_b", 224, cache, n=n)
+        attack = ADIL(victim, eps=EPS, n_atoms=100, loss="logits", steps_inference=steps,
+                      cache=cache, attack="supervised")
+
+        def run(x):
+            passes.clear()
+            before = counts()
+            adv = attack(x)
+            runs.append((len(passes), sum(passes), before, counts()))
+            return adv
+
+        hook = victim.net.register_forward_hook(record)
+        try:
+            perturb = _serve_mode(run, images, victim, "swin_b 224x224 supervised", False)
+        finally:
+            hook.remove()
+        del victim, images, attack
+    print(f"swin_b: (passes, input-gradient passes, window-attention forward and backward "
+          f"launch counts before and after) of the warm-up, timed and traced runs {runs}")
+    if len(runs) != 3 or runs[1][2] != (0, 0):
+        raise AssertionError(f"swin_b: runs {runs}; the timed run's counts start at 0")
+    for count, grads, before, after in runs:
+        forwards, backwards = after[0] - before[0], after[1] - before[1]
+        if not grads or (forwards, backwards) != (blocks * count, blocks * grads):
+            raise AssertionError(f"swin_b: {forwards} / {backwards} window-attention launches in "
+                                 f"{count} passes, {grads} with an input gradient; the path "
+                                 f"makes {blocks} a pass each way")
+    return (perturb,) + runs[1][3]
 
 
 def _check_trained(name: str, d, v, eps: float) -> None:
@@ -3264,7 +3397,8 @@ def main() -> None:
         return out
 
     kernels = [timed("fused_perturb check", check_fused_perturb, dev),
-               timed("fused_adamw_project check", check_fused_adamw_project, dev)]
+               timed("fused_adamw_project check", check_fused_adamw_project, dev),
+               timed("swin_window_attention check", check_swin_window_attention, dev)]
     timed("small-size checks", lambda: (check_small_against_cpu(dev),
                                         check_train_small_against_cpu(dev),
                                         check_families_against_cpu(dev)))
@@ -3274,6 +3408,9 @@ def main() -> None:
     zoo_launches, zoo_err = timed("zoo", serve_zoo, dev)
     kernels[0]["launches"] += zoo_launches
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], zoo_err)
+    perturb, kernels[2]["launches"], kernels[2]["backward_launches"] = timed(
+        "swin_b", serve_swin, dev)
+    kernels[0]["launches"] += perturb
     with tempfile.TemporaryDirectory() as root:
         for name, phase in (("demo experiment", demo_experiment),
                             ("single image", single_image_attack)):

@@ -35,6 +35,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..attacks.adil_core import TrainState
+from .swin import ShiftedWindowAttention, relative_position_index
 from .vgg import CFGS as _VGG_CFGS
 
 
@@ -309,10 +310,12 @@ def load_torch_checkpoint(path: str, victim, vit: bool = False):
     is accepted and changes nothing: the port's ViT has torchvision's names
     too."""
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
-    own = dict(victim.net.named_buffers())
+    blocks = dict(victim.net.named_modules())
     for k in [k for k in state_dict if k.endswith(".relative_position_index")]:
         index = state_dict.pop(k)
-        if k not in own or not torch.equal(index.cpu(), own[k].cpu()):
+        block = blocks.get(k[:-len(".relative_position_index")])
+        if not isinstance(block, ShiftedWindowAttention) or not torch.equal(
+                index.cpu(), relative_position_index(block.window)):
             raise ValueError(f"{k} is not the port's relative-position index")
     victim.net.load_state_dict({
         k: v for k, v in state_dict.items()

@@ -13,35 +13,47 @@ rolls back after. Where the window covers the map on an axis the shift on
 that axis is 0, as torchvision and the official code set it (Swin-B's
 fourth stage). Every stage's map has to be a multiple of the window (Swin-B
 at 224²; torchvision pads other maps, which the port refuses). Every score
-matrix gets the learned relative-position bias, gathered from
-``relative_position_bias_table`` by a fixed index on every forward. The
-attention is vit.py's :func:`~.vit.attend`, with the bias (and mask) as its
-additive term; LayerNorm eps is 1e-5, GELU the exact erf one, and dropout
-and stochastic depth are the identity (a victim is always in eval mode).
+matrix gets the learned relative-position bias, read from
+``relative_position_bias_table`` through a fixed index on every forward.
+LayerNorm eps is 1e-5, GELU the exact erf one, and dropout and stochastic
+depth are the identity (a victim is always in eval mode).
+
+The qkv Linear runs on the map as it is, before any roll (it is per
+token, as the proj Linear is), and the module takes its (N, H, W, 3C)
+output and the bias table to the (N, H, W, C) input of proj by device: on
+the card through :func:`~..ops.kernels.swin_window_attention`, one
+hand-written kernel, forward and input gradient, with the roll, the
+partition, the bias, the mask and their reverse in its indexing; on the
+CPU through the plain twin :func:`window_attention_reference` (roll,
+:func:`_partition`, vit.py's :func:`~.vit.attend` with the bias and mask as
+its additive term, :func:`_reverse`, roll back).
+
 The names are torchvision's: ``features.0.{0,2}`` for the stem,
 ``features.{1,3,5,7}.i.{norm1, attn.qkv, attn.proj,
 attn.relative_position_bias_table, norm2, mlp.0, mlp.3}`` for the blocks,
 ``features.{2,4,6}.{reduction, norm}`` for the merges, ``norm`` and
-``head``; the relative-position index is a buffer outside the
-``state_dict``.
+``head``; the relative-position index is computed
+(:func:`relative_position_index`), not kept in the ``state_dict``.
 
 fp32 only: the port has no bf16 Swin (``dtype=torch.bfloat16`` raises).
 
 Spans (``utils.profiling.annotate``, device-timed on the card): per block
-``victim/swin/attention`` (``x + attention(norm1(x))``) with
-``victim/swin/shift`` inside it twice (roll and partition; reverse and
-roll back), and ``victim/swin/mlp`` (``x + mlp(norm2(x))``); per merge
+``victim/swin/attention`` (``x + attention(norm1(x))``), with, in the plain
+twin only, ``victim/swin/shift`` inside it twice (roll and partition;
+reverse and roll back: on the card the kernel's indexing does that work),
+and ``victim/swin/mlp`` (``x + mlp(norm2(x))``); per merge
 ``victim/swin/merge``; ``victim/swin/embed`` (the stem) and
 ``victim/swin/head`` (the final LayerNorm, pool and head) once a pass.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Sequence
 
 import torch
 from torch import nn
 
+from ..ops.kernels import swin_window_attention
 from ..utils.profiling import annotate
 from .layers import Conv2d, Linear, resolve_dtype
 from .vit import GELU, LayerNorm, attend
@@ -50,11 +62,13 @@ _LN_EPS = 1e-5
 _MASKED = -100.0
 
 
-def relative_position_index(window: int) -> torch.Tensor:
+def relative_position_index(window: int, device=None) -> torch.Tensor:
     """(window², window²) → row of the bias table: for tokens at (y1, x1)
     and (y2, x2) of a window, (y1 - y2 + window - 1) * (2 window - 1) +
-    (x1 - x2 + window - 1), flattened."""
-    y, x = torch.meshgrid(torch.arange(window), torch.arange(window), indexing="ij")
+    (x1 - x2 + window - 1), flattened; computed on ``device`` (no copy to
+    it, which would wait for the card)."""
+    y, x = torch.meshgrid(torch.arange(window, device=device), torch.arange(window, device=device),
+                          indexing="ij")
     y, x = y.flatten(), x.flatten()
     dy = y[:, None] - y[None, :] + window - 1
     dx = x[:, None] - x[None, :] + window - 1
@@ -85,6 +99,47 @@ def _reverse(x: torch.Tensor, window: int, n: int, h: int, w: int) -> torch.Tens
     return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, c)
 
 
+def relative_bias(table: torch.Tensor, window: int) -> torch.Tensor:
+    """(heads, window², window²), gathered from ``table`` as it is now."""
+    n = window * window
+    return table[relative_position_index(window, table.device)].view(n, n, -1).permute(2, 0, 1)
+
+
+def window_mask(h: int, w: int, window: int, sh: int, sw: int, device) -> torch.Tensor:
+    """(windows, window², window²): 0 between tokens of one region of the
+    map rolled by (-sh, -sw), -100 between tokens of two; each token's
+    region from its rolled row and column (:func:`_bands`), as the kernel
+    computes it."""
+    region = _bands(h, window, sh, device)[:, None] * 3 + _bands(w, window, sw, device)[None, :]
+    region = _partition(region[None, :, :, None], window)[..., 0]
+    return torch.where(region[:, :, None] == region[:, None, :], 0.0, _MASKED)
+
+
+def window_attention_reference(qkv: torch.Tensor, table: torch.Tensor, window: int, sh: int,
+                               sw: int, heads: int) -> torch.Tensor:
+    """The plain twin of :func:`~..ops.kernels.swin_window_attention`: the
+    (N, H, W, 3C) qkv map rolled by (-sh, -sw) and cut into windows,
+    softmax(q kᵀ / sqrt(head dim) + bias + mask) v in each window and head
+    (:func:`~.vit.attend`), the windows put back and the map rolled back;
+    (N, H, W, C) out. Its roll and partition, and their reverse, are
+    ``victim/swin/shift`` spans."""
+    n, h, w, c3 = qkv.shape
+    c, tokens = c3 // 3, window * window
+    with annotate("victim/swin/shift", device=qkv.is_cuda) as span:
+        rolled = torch.roll(qkv, shifts=(-sh, -sw), dims=(1, 2)) if sh or sw else qkv
+        windows = span.backward(qkv, _partition(rolled, window))
+    q, k, v = windows.view(-1, tokens, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    bias = relative_bias(table, window)[None]
+    if sh or sw:
+        bias = bias + window_mask(h, w, window, sh, sw, qkv.device)[:, None]
+    out = attend(q, k, v, bias).transpose(1, 2).reshape(-1, tokens, c)
+    with annotate("victim/swin/shift", device=qkv.is_cuda) as span:
+        y = _reverse(out, window, n, h, w)
+        if sh or sw:
+            y = torch.roll(y, shifts=(sh, sw), dims=(1, 2))
+        return span.backward(out, y)
+
+
 class _Permute(nn.Module):
     """torchvision's ``Permute`` of the stem (NCHW → NHWC)."""
 
@@ -107,50 +162,19 @@ class ShiftedWindowAttention(nn.Module):
         self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
-        self.register_buffer("relative_position_index", relative_position_index(window),
-                             persistent=False)
-        self._masks: Dict[Tuple, torch.Tensor] = {}  # by (H, W, shifts, device)
-
-    def relative_bias(self) -> torch.Tensor:
-        """(heads, window², window²), gathered from the table as it is now."""
-        n = self.window * self.window
-        table = self.relative_position_bias_table[self.relative_position_index]
-        return table.view(n, n, -1).permute(2, 0, 1)
-
-    def mask(self, h: int, w: int, sh: int, sw: int, device) -> torch.Tensor:
-        """(windows, window², window²): 0 between tokens of one region of
-        the rolled map, -100 between tokens of two; by shape, cached."""
-        key = (h, w, sh, sw, device)
-        if key not in self._masks:
-            win = self.window
-            region = _bands(h, win, sh, device)[:, None] * 3 + _bands(w, win, sw, device)[None, :]
-            region = _partition(region[None, :, :, None], win)[..., 0]
-            self._masks[key] = torch.where(region[:, :, None] == region[:, None, :], 0.0,
-                                           _MASKED).to(self.relative_position_bias_table.dtype)
-        return self._masks[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, h, w, c = x.shape
-        win, heads = self.window, self.num_heads
+        _, h, w, _ = x.shape
+        win = self.window
         if h % win or w % win:
             raise ValueError(f"Swin's {win}x{win} windows do not tile a {h}x{w} map; take an "
                              f"input size whose maps they tile (224 for Swin-B)")
         sh = self.shift if win < h else 0
         sw = self.shift if win < w else 0
-        with annotate("victim/swin/shift", device=x.is_cuda) as span:
-            xs = torch.roll(x, shifts=(-sh, -sw), dims=(1, 2)) if sh or sw else x
-            windows = span.backward(x, _partition(xs, win))
-        tokens = win * win
-        q, k, v = self.qkv(windows).view(-1, tokens, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
-        bias = self.relative_bias()[None]
-        if sh or sw:
-            bias = bias + self.mask(h, w, sh, sw, x.device)[:, None]
-        out = self.proj(attend(q, k, v, bias).transpose(1, 2).reshape(-1, tokens, c))
-        with annotate("victim/swin/shift", device=x.is_cuda) as span:
-            y = _reverse(out, win, n, h, w)
-            if sh or sw:
-                y = torch.roll(y, shifts=(sh, sw), dims=(1, 2))
-            return span.backward(out, y)
+        qkv = self.qkv(x)
+        attention = swin_window_attention if qkv.is_cuda else window_attention_reference
+        return self.proj(attention(qkv, self.relative_position_bias_table, win, sh, sw,
+                                   self.num_heads))
 
 
 class SwinBlock(nn.Module):

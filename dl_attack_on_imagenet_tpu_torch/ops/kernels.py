@@ -2,8 +2,13 @@
 
 ``fused_perturb`` and ``fused_adamw_project`` replace the Pallas TPU kernels
 of the same names in ``dl_attack_on_imagenet_tpu/ops/pallas_kernels.py``;
-their CUDA sources are ``csrc/<name>.cu``. On a CUDA tensor a wrapper
-launches its kernel or raises; only tensors on the CPU take the plain twin.
+``swin_window_attention`` (Swin's windowed attention, forward and input
+gradient) replaces none: the JAX package has no Swin. Their CUDA sources
+are ``csrc/<name>.cu``. On a CUDA tensor a wrapper launches its kernel or
+raises; only tensors on the CPU take the plain twin. Swin's wrapper takes
+CUDA tensors only: its twin is the model's own path
+(``models.swin.window_attention_reference``), and the model picks one or
+the other by device.
 """
 
 from __future__ import annotations
@@ -190,3 +195,127 @@ def fused_adamw_project(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
 
 
 fused_adamw_project.launches = 0
+
+
+# (window, head dim) pairs the window-attention kernel is built for: Swin-B's
+# every stage, and the small test Swin's.
+SWIN_WINDOW_SHAPES = ((7, 32), (4, 8))
+
+
+def _swin_head_dim(qkv, table, window: int, shift_h: int, shift_w: int, heads: int) -> int:
+    """Check a window attention's shapes; returns the head dim."""
+    if qkv.dim() != 4 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"swin_window_attention: qkv must be (N, H, W, 3 x {heads} heads x "
+                         f"head dim), got {tuple(qkv.shape)}")
+    _, h, w, c3 = qkv.shape
+    head_dim = c3 // (3 * heads)
+    if (window, head_dim) not in SWIN_WINDOW_SHAPES:
+        raise ValueError(f"swin_window_attention: no kernel for window {window} with head dim "
+                         f"{head_dim}; (window, head dim) must be one of {SWIN_WINDOW_SHAPES}")
+    if h % window or w % window:
+        raise ValueError(f"swin_window_attention: {window}x{window} windows do not tile a "
+                         f"{h}x{w} map")
+    if not (0 <= shift_h < window and 0 <= shift_w < window):
+        raise ValueError(f"swin_window_attention: shifts ({shift_h}, {shift_w}) outside "
+                         f"[0, {window})")
+    if tuple(table.shape) != ((2 * window - 1) ** 2, heads):
+        raise ValueError(f"swin_window_attention: the bias table must be "
+                         f"({(2 * window - 1) ** 2}, {heads}), got {tuple(table.shape)}")
+    return head_dim
+
+
+def _bind_swin(lib: ctypes.CDLL):
+    fwd = lib.swin_window_attention_forward_f32
+    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    bwd = lib.swin_window_attention_backward_f32
+    bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _launch_swin(fn, pointers, qkv, geometry) -> bool:
+    """One launch of the forward or backward on ``qkv``'s device and current
+    stream, none for an empty batch; whether it launched. ``geometry`` is
+    (window, head dim, shift_h, shift_w, heads)."""
+    window, head_dim, shift_h, shift_w, heads = geometry
+    n, h, w, _ = qkv.shape
+    if n == 0:
+        return False
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(*pointers, n, h, w, heads, window, head_dim, shift_h, shift_w, stream)
+    if err:
+        raise RuntimeError(f"swin_window_attention: kernel launch failed with CUDA error {err}")
+    return True
+
+
+class _SwinWindowAttention(torch.autograd.Function):
+    """The kernel's forward, and its backward for qkv's gradient; the
+    forward saves qkv and each score row's log-sum-exp, not the scores."""
+
+    @staticmethod
+    def forward(ctx, qkv, table, geometry):
+        n, h, w, c3 = qkv.shape
+        window, heads = geometry[0], geometry[-1]
+        out = qkv.new_empty((n, h, w, c3 // 3))
+        lse = qkv.new_empty((n * (h // window) * (w // window), heads, window * window))
+        fwd, _ = _bind_swin(native.load("swin_window_attention"))
+        if _launch_swin(fwd, (qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
+                              lse.data_ptr()), qkv, geometry):
+            swin_window_attention.launches += 1
+        ctx.save_for_backward(qkv, table, lse)
+        ctx.geometry = geometry
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        qkv, table, lse = ctx.saved_tensors
+        grad = grad.contiguous()
+        dqkv = torch.empty_like(qkv)
+        _, bwd = _bind_swin(native.load("swin_window_attention"))
+        if _launch_swin(bwd, (qkv.data_ptr(), table.data_ptr(), lse.data_ptr(),
+                              grad.data_ptr(), dqkv.data_ptr()), qkv, ctx.geometry):
+            swin_window_attention.backward_launches += 1
+        return dqkv, None, None
+
+
+def swin_window_attention(qkv: torch.Tensor, table: torch.Tensor, window: int, shift_h: int,
+                          shift_w: int, heads: int) -> torch.Tensor:
+    """A Swin block's windowed attention between its qkv and proj Linears.
+
+    Args:
+      qkv: (N, H, W, 3C) output of the qkv Linear on the unrolled map, its
+        channels q, k, v, each heads x head dim.
+      table: ((2 window - 1)², heads) relative-position bias table.
+      window: the window's side; shift_h, shift_w: the cyclic shift of the
+        shifted-window blocks on each axis (0 for a plain window block).
+
+    Returns the (N, H, W, C) attention output in map order: the map rolled
+    by (-shift_h, -shift_w), cut into windows, softmax(q kᵀ / sqrt(head
+    dim) + bias + mask) v in each window and head, and put back and rolled
+    back, as :func:`~..models.swin.window_attention_reference` does on the
+    CPU. The kernel does it all, forward and qkv's gradient; every input
+    must be contiguous float32 on one CUDA device, and the table may not
+    require a gradient while autograd records (the kernel gives it none).
+    Each forward launch adds one to ``swin_window_attention.launches``,
+    each backward to ``swin_window_attention.backward_launches``. Only
+    (window, head dim) pairs in ``SWIN_WINDOW_SHAPES`` are taken.
+    """
+    head_dim = _swin_head_dim(qkv, table, window, shift_h, shift_w, heads)
+    if table.requires_grad and torch.is_grad_enabled():
+        raise ValueError("swin_window_attention: the kernel gives the bias table no gradient; "
+                         "freeze it (create_model does) or run without autograd")
+    if not all(t.is_cuda and t.device == qkv.device for t in (qkv, table)):
+        raise ValueError("swin_window_attention: qkv and the table must both be on one CUDA "
+                         "device (the CPU takes models.swin.window_attention_reference)")
+    if not all(t.dtype == torch.float32 for t in (qkv, table)):
+        raise TypeError("swin_window_attention: the kernel takes float32 only")
+    if not (qkv.is_contiguous() and table.is_contiguous()) or qkv.data_ptr() % 16:
+        raise ValueError("swin_window_attention: the kernel takes contiguous tensors, qkv "
+                         "16-byte aligned")
+    return _SwinWindowAttention.apply(qkv, table, (window, head_dim, shift_h, shift_w, heads))
+
+
+swin_window_attention.launches = 0
+swin_window_attention.backward_launches = 0

@@ -79,6 +79,29 @@ def shift_mask(h, wd, w, s, device):
     return (r[..., :, None] != r[..., None, :]).float() * -100.0
 
 
+def attention(params, x, name, heads, shift, w, without=()):
+    """One block's (shifted-)window attention on its normed (n, H, W, C)
+    map: roll by ``shift``, windows, qkv, the scores with the bias and the
+    mask, softmax, the values, proj, back to the map and roll back."""
+    n, h, wd, c = x.shape
+    hd = c // heads
+    roll = shift if "shift" not in without else 0
+    if roll:
+        x = torch.roll(x, (-roll, -roll), (1, 2))
+    t = windows(x, w)  # (n, nh, nw, w², c)
+    nh, nw = t.shape[1:3]
+    qkv = F.linear(t, params[f"{name}.qkv.weight"], params[f"{name}.qkv.bias"])
+    q, k, v = qkv.reshape(n, nh, nw, w * w, 3, heads, hd).permute(4, 0, 1, 2, 5, 3, 6)
+    s = q @ k.transpose(-2, -1) / math.sqrt(hd)  # each (n, nh, nw, heads, w², w²)
+    if "bias" not in without:
+        s = s + relative_bias(params[f"{name}.relative_position_bias_table"], w)
+    if roll and "mask" not in without:
+        s = s + shift_mask(h, wd, w, shift, x.device)[:, :, None]
+    o = (torch.softmax(s, dim=-1) @ v).transpose(-3, -2).reshape(n, nh, nw, w * w, c)
+    o = unwindows(F.linear(o, params[f"{name}.proj.weight"], params[f"{name}.proj.bias"]), w)
+    return torch.roll(o, (roll, roll), (1, 2)) if roll else o
+
+
 def model(params, cfg, without=()):
     """The frozen classifier: NHWC [0, 1] images -> logits; ``without``
     names the parts left out (see the module)."""
@@ -94,25 +117,6 @@ def model(params, cfg, without=()):
     def dense(x, name):
         return F.linear(x, params[f"{name}.weight"], params.get(f"{name}.bias"))
 
-    def attention(x, name, heads, shift):
-        n, h, wd, c = x.shape
-        hd = c // heads
-        roll = shift if "shift" not in without else 0
-        if roll:
-            x = torch.roll(x, (-roll, -roll), (1, 2))
-        t = windows(x, w)  # (n, nh, nw, w², c)
-        nh, nw = t.shape[1:3]
-        qkv = dense(t, f"{name}.qkv").reshape(n, nh, nw, w * w, 3, heads, hd)
-        q, k, v = qkv.permute(4, 0, 1, 2, 5, 3, 6)  # each (n, nh, nw, heads, w², hd)
-        s = q @ k.transpose(-2, -1) / math.sqrt(hd)
-        if "bias" not in without:
-            s = s + relative_bias(params[f"{name}.relative_position_bias_table"], w)
-        if roll and "mask" not in without:
-            s = s + shift_mask(h, wd, w, shift, x.device)[:, :, None]
-        o = (torch.softmax(s, dim=-1) @ v).transpose(-3, -2).reshape(n, nh, nw, w * w, c)
-        o = unwindows(dense(o, f"{name}.proj"), w)
-        return torch.roll(o, (roll, roll), (1, 2)) if roll else o
-
     def forward(images):
         x = (images.permute(0, 3, 1, 2).contiguous() - mean) / std
         p = cfg["patch_size"]
@@ -123,7 +127,8 @@ def model(params, cfg, without=()):
             for j in range(depth):
                 b = f"features.{2 * i + 1}.{j}"
                 shift = w // 2 if j % 2 and w < x.shape[1] else 0
-                x = x + attention(ln(x, f"{b}.norm1"), f"{b}.attn", heads, shift)
+                x = x + attention(params, ln(x, f"{b}.norm1"), f"{b}.attn", heads, shift, w,
+                                  without)
                 x = x + dense(F.gelu(dense(ln(x, f"{b}.norm2"), f"{b}.mlp.0")), f"{b}.mlp.3")
             if i < len(stages) - 1:
                 m = f"features.{2 * i + 2}"

@@ -20,7 +20,11 @@ the card against the CPU and the plain stem (1e-4), both kernels on the
 blocked column order, pipelined blocked learning against the serial loop,
 and ``cli.generate`` on the card against the CPU; Swin-B's device-timed
 spans against the device time of a whole pass, and its DDrague batch's
-blocking reads against ViT-B/16's. Every test here needs a GPU and skips
+blocking reads against ViT-B/16's; the Swin window-attention kernel
+against its plain twin at every Swin-B stage shape (output within 1e-5 of
+its largest value, each of dq, dk, dv within 1e-4 in relative l2), and its
+launches: 24 forwards and 24 backwards a Swin-B pass, ``swin_tiny``'s
+blocks too, none for an empty batch. Every test here needs a GPU and skips
 without one.
 
 This file imports neither JAX nor the JAX package (the grid's tests take
@@ -919,7 +923,8 @@ def test_swin_spans_cover_a_pass_on_the_card(cuda):
         totals = profiling.device_totals()
     finally:
         profiling.reset()
-    assert totals["victim/swin/attention"].count == 24 and totals["victim/swin/shift"].count == 48
+    # The shift is the kernel's indexing on the card: no span of its own.
+    assert totals["victim/swin/attention"].count == 24 and "victim/swin/shift" not in totals
     assert totals["victim/swin/merge"].count == 3
     covered = sum(totals[n].forward_s + totals[n].backward_s for n in _SWIN_TOP)
     shares = {n: (t.forward_s + t.backward_s) / whole for n, t in totals.items()}
@@ -957,3 +962,74 @@ def test_a_ddrague_batch_reads_as_often_on_swin_as_on_vit(cuda, tmp_path, name):
     finally:
         profiling.reset()
     assert syncs == {"sync/dict_pinv": 1, "sync/step_delta": 30}
+
+
+# Swin-B's stages at 224²: (map side, channels, heads, shift); the fourth
+# stage's 7x7 map is one window, so none of its blocks is shifted.
+_SWIN_B_STAGES = [(56, 128, 4, 0), (56, 128, 4, 3), (28, 256, 8, 0), (28, 256, 8, 3),
+                  (14, 512, 16, 0), (14, 512, 16, 3), (7, 1024, 32, 0)]
+
+
+@pytest.mark.parametrize("table_scale", [1.0, 10.0])
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("side,channels,heads,shift", _SWIN_B_STAGES)
+def test_swin_window_attention_matches_its_twin_on_the_card(cuda, side, channels, heads, shift,
+                                                            batch, table_scale):
+    # The table drawn as the victim's init, N(0, 0.02), and at 10x that; q,
+    # k and v of unit scale. Output within 1e-5 of its largest value, and
+    # the gradients of q, k and v each within 1e-4 in relative l2: the kernel
+    # and the twin's cuBLAS products sum in other orders.
+    from dl_attack_on_imagenet_tpu_torch.models.swin import window_attention_reference
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
+
+    g = torch.Generator(device=cuda).manual_seed(side + shift + batch)
+    qkv = torch.randn((batch, side, side, 3 * channels), generator=g, device=cuda)
+    table = torch.randn((13 * 13, heads), generator=g, device=cuda) * 0.02 * table_scale
+    grad_out = torch.randn((batch, side, side, channels), generator=g, device=cuda)
+    before = (swin_window_attention.launches, swin_window_attention.backward_launches)
+    results = []
+    for fn in (swin_window_attention, window_attention_reference):
+        x = qkv.clone().requires_grad_(True)
+        out = fn(x, table, 7, shift, shift, heads)
+        (grad,) = torch.autograd.grad(out, x, grad_out)
+        results.append((out.detach(), grad))
+    torch.cuda.synchronize()
+    assert (swin_window_attention.launches, swin_window_attention.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    (out, grad), (want, want_grad) = results
+    out_err = float((out - want).abs().max() / want.abs().max())
+    grad_errs = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+                 for a, b in zip(grad.chunk(3, dim=-1), want_grad.chunk(3, dim=-1))]
+    assert out_err <= 1e-5 and max(grad_errs) <= 1e-4, (out_err, grad_errs)
+
+
+@pytest.mark.parametrize("name,size,blocks", [("swin_b", 224, 24), ("swin_tiny", 64, 6)])
+def test_every_swin_block_launches_the_kernel_on_the_card(cuda, name, size, blocks):
+    # A forward and input gradient launches one forward and one backward a
+    # block; a forward without autograd, one forward a block.
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
+
+    victim = create_model(name, device=cuda, seed=0)
+    x = torch.rand((2, size, size, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    counts = lambda: (swin_window_attention.launches, swin_window_attention.backward_launches)
+    before = counts()
+    xt = x.clone().requires_grad_(True)
+    torch.autograd.grad(victim(xt).square().sum(), xt)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + blocks, before[1] + blocks)
+    with torch.no_grad():
+        victim(x)
+    assert counts() == (before[0] + 2 * blocks, before[1] + blocks)
+
+
+def test_swin_window_attention_takes_an_empty_batch_on_the_card(cuda):
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
+
+    qkv = torch.zeros((0, 14, 14, 3 * 512), device=cuda, requires_grad=True)
+    table = torch.zeros((13 * 13, 16), device=cuda)
+    counts = lambda: (swin_window_attention.launches, swin_window_attention.backward_launches)
+    before = counts()
+    out = swin_window_attention(qkv, table, 7, 3, 3, 16)
+    (grad,) = torch.autograd.grad(out.sum(), qkv)
+    assert out.shape == (0, 14, 14, 512) and grad.shape == qkv.shape
+    assert counts() == before

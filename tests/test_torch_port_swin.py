@@ -27,8 +27,8 @@ import _plain_swin
 from dl_attack_on_imagenet_tpu_torch.cli._victim import build_victim
 from dl_attack_on_imagenet_tpu_torch.models import create_model, vit
 from dl_attack_on_imagenet_tpu_torch.models.convert import load_torch_checkpoint
-from dl_attack_on_imagenet_tpu_torch.models.swin import (SwinTransformer, relative_position_index,
-                                                         swin_b)
+from dl_attack_on_imagenet_tpu_torch.models.swin import (SwinTransformer, relative_bias,
+                                                         relative_position_index, swin_b)
 from dl_attack_on_imagenet_tpu_torch.utils import profiling
 from h100bench.reference import swin as bench_swin
 
@@ -131,11 +131,12 @@ def test_swin_is_fp32_only_and_refuses_maps_its_windows_do_not_tile():
 def test_the_relative_bias_follows_the_loaded_table(tiny):
     params, victim = tiny
     attn = victim.net.features[1][0].attn
-    before = attn.relative_bias().clone()
+    before = relative_bias(attn.relative_position_bias_table, attn.window).clone()
     table = params["features.1.0.attn.relative_position_bias_table"] + 1.0
     victim.net.load_state_dict({**params, "features.1.0.attn.relative_position_bias_table": table})
     try:
-        assert torch.equal(attn.relative_bias(), before + 1.0)
+        assert torch.equal(relative_bias(attn.relative_position_bias_table, attn.window),
+                           before + 1.0)
     finally:
         victim.net.load_state_dict(params)
 
