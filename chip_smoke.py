@@ -115,8 +115,7 @@ phase, and exits non-zero if any phase fails:
    ``torch.optim.AdamW(fused=True)``); and ADILR on the card against the CPU
    on the tiny victim;
 16. holds ``fused_perturb`` against its twin at N=128 (``cli.generate``'s
-   batch) and both kernels on the space-to-depth column order, each timed
-   beside its twin and its bound;
+   batch), timed beside its twin and its bound;
 17. runs ``cli.generate`` through its ``main`` on ResNet-50 at 224x224 with a
    seeded K=100 dictionary: a blob of 300 seeded images written by
    ``cli.dataset``'s writer (batches of 128, 128 and 44), served supervised
@@ -128,38 +127,35 @@ phase, and exits non-zero if any phase fails:
    on reference-format ``torch.save`` files (ADIL's ``[d (3,224,224,100),
    v, ...]``, UAP-PGD's ``[e (1,3,224,224), ...]``) and one supervised
    batch of 64 served from the imported dictionary;
-18. runs the space-to-depth layout on ResNet-50 with an S2D stem: the stem,
-   the ``--fast-victim`` build and the blocked twin against the plain stem
-   and the CPU (logits and CW input gradient, 1e-4); 10 chained ``gd``
-   steps at b64 blocked beside standard, timed and traced, and 3 under
-   deterministic cuDNN held against each other; a supervised DDrague
-   batch of 64 through the twin beside the standard layout; ``ADIL``
-   learning with ``pipeline_epochs`` True beside False (128 images, b64,
-   2 epochs; D and v within 1e-5); and data-parallel learning at world
-   size 1 with ``blocked=True`` against its serial replay on the twin;
+18. runs the S2D stem on ResNet-50: the stem alone against the plain stem
+   (1e-5) and both timed at b64; the ``stem_s2d`` and ``--fast-victim``
+   builds and the plain victim, on the card and on the CPU, against the
+   plain victim in float64 (logits 1e-4 of the largest, CW input gradient
+   2e-2 in relative l2); then ``ADIL`` learning on the S2D victim with
+   ``pipeline_epochs`` True beside False (128 images, b64, 2 epochs; D and
+   v within 1e-5);
 19. runs one ``cli.generate`` batch inside ``utils.trace`` and checks that
    the trace file holds CUDA kernels;
 20. runs a bf16 victim (``create_model(dtype=torch.bfloat16)``) beside the
-   fp32 one on ResNet-50 at 224x224: 10 chained ``gd`` steps at b64 K=100,
-   a supervised DDrague batch of 64 (30 steps) and a supervised AdamW-codes
-   batch through ``ADIL``, one ``cli.generate`` supervised batch of 128,
-   then ``bench.py``'s configuration (bf16, the S2D stem on blocked input,
-   BatchNorms folded: the step and DDrague through the twin), each with its
-   wall, launches and fooled share, the step and DDrague traced for their
-   busy share; every tensor handed to a kernel on that path must be fp32;
-   then every family's bf16 victim on the card against the CPU at a small
-   size by the gap rule of the CPU tests (the card's bf16 logits and CW
-   input gradient no further from the CPU's bf16 ones than those are from
-   the CPU's fp32 ones, in relative l2);
+   fp32 one on ResNet-50 at 224x224: 10 chained ``gd`` steps at b64 K=100, a
+   supervised DDrague batch of 64 (30 steps) and a supervised AdamW-codes
+   batch through ``ADIL``, one ``cli.generate`` supervised batch of 128, then
+   ``bench.py``'s configuration (bf16, the S2D stem, BatchNorms folded: the
+   step and DDrague), each with its wall, launches and fooled share, the step
+   and DDrague traced for their busy share; every tensor handed to a kernel on
+   that path must be fp32; then every family's bf16 victim on the card against
+   the CPU at a small size by the gap rule of the CPU tests (the card's bf16
+   logits and CW input gradient no further from the CPU's bf16 ones than those
+   are from the CPU's fp32 ones, in relative l2);
 21. runs the ``gd`` step on ResNet-50 at b64 under each ``ADIL_MAXPOOL`` x
    ``ADIL_RELU`` backward variant (``models.layers.POOL_MODE`` and
    ``RELU_MODE``): ms a step, peak memory, and the input gradient's largest
    gap from the default under deterministic cuDNN (0 but under ``slices``
    and ``vjp``);
 22. prints the whole run's time and one ``{"kernels": [...]}`` line, each
-   kernel's ADILR shape under ``"adilr"``, ``fused_perturb`` at N=128 under
-   ``"n128"`` and both kernels on the blocked layout under ``"blocked"``,
-   then the result line ``{"ok": true, "device": {...}}`` last.
+   kernel's ADILR shape under ``"adilr"`` and ``fused_perturb`` at N=128
+   under ``"n128"``, then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Each path runs with the kernels' launch counts set to 0 just before it, and
 fails if a kernel of that path was not launched as often as the path must.
@@ -185,8 +181,10 @@ import time
 import numpy as np
 import torch
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
+from h100bench.arith import PEAKS, fused_adamw_project_bytes, fused_perturb_bytes
+
+H100_BYTES_PER_S = PEAKS["hbm_bytes_per_s"]
+H100_FP32_FLOP_PER_S = PEAKS["flop_per_s"]["float32"]
 EPS = 8 / 255
 # Every victim family but the ResNets at a small input size, for the card
 # against the CPU: (registry name, input size).
@@ -270,11 +268,6 @@ def _bound(bytes_moved: float, flops: float):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def fused_perturb_bytes(n: int, k: int, m: int) -> int:
-    """Bytes the function must move: v, D and x read once, out written once."""
-    return 4 * (n * k + k * m + 2 * n * m)
-
-
 def fused_perturb_bound_ms(n: int, k: int, m: int):
     """Least time for the function on an H100 SXM: each input read once and
     the output written once at the HBM rate, against its fp32 FMAs at the
@@ -286,7 +279,7 @@ def fused_adamw_project_bound_ms(n: int):
     """Least time for one AdamW step and clamp over n fp32 elements: read p,
     g, mu, nu and write p, mu, nu once, against 17 operations an element
     (7 for the moments, 4 for the update, 4 for the step, 2 for the clamp)."""
-    return _bound(7 * 4 * n, 17 * n)
+    return _bound(fused_adamw_project_bytes(n), 17 * n)
 
 
 def check_fused_perturb(dev) -> dict:
@@ -2463,96 +2456,34 @@ def torchattacks_grid(dev, model: str = "resnet50", size: int = 224, n: int = 64
 # -- the tenth slice: cli.generate, cli.import_artifacts, the S2D layout --
 
 
-def _layouts_close(name: str, got, want, start, spread=None, tol: float = 0.1) -> float:
-    """Hold the blocked layout's result against the standard one's, both
-    moved from ``start``: their moves within ``tol`` in relative l2. On a
-    random ResNet-50 at 224x224 the two layouts' input gradients part by
-    about 0.5% in l2 (max-pool windows whose top two values are within
-    rounding route to other inputs, as the card and the CPU do with one
-    layout), and signed steps carry that into the state, so no elementwise
-    bound holds; a wrong column order would give about 1.4. ``spread``, the
-    same distance between two standard runs without deterministic cuDNN,
-    is printed beside it. Returns the distance."""
-    move = (torch.as_tensor(want) - torch.as_tensor(start)).float()
-    diff = (torch.as_tensor(got) - torch.as_tensor(want)).float()
-    rel = float(diff.norm() / move.norm())
-    extra = f"; two standard runs without deterministic cuDNN {spread:.3e}" if spread else ""
-    print(f"  {name}: the moves {rel:.3e} apart in relative l2 (tol {tol:g}), max_abs_diff "
-          f"{float(diff.abs().max()):.3e}{extra}")
-    if not rel <= tol:
-        raise AssertionError(f"{name}: the two layouts part: {rel}")
-    return rel
-
-
-def check_kernels_at_new_shapes(dev, n: int = 128, k: int = 100, h: int = 224):
-    """``fused_perturb`` at N=128, the batch ``cli.generate`` serves, and both
-    kernels on the space-to-depth layout (D and x blocked, the columns
-    permuted), each against its plain twin, timed beside the twin and the
-    bound. Returns the (fused_perturb, fused_adamw_project) rows."""
-    from dl_attack_on_imagenet_tpu_torch.models import space_to_depth
-    from dl_attack_on_imagenet_tpu_torch.ops import (
-        fused_adamw_project, fused_adamw_project_reference, fused_perturb,
-        fused_perturb_reference)
+def check_fused_perturb_n128(dev, n: int = 128, k: int = 100, h: int = 224) -> dict:
+    """``fused_perturb`` at N=128, the batch ``cli.generate`` serves,
+    against its plain twin, timed beside the twin and the bound. Returns
+    its row."""
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_perturb, fused_perturb_reference
 
     g = torch.Generator(device=dev).manual_seed(8)
     m = h * h * 3
     d = torch.rand((k, h, h, 3), generator=g, device=dev) * 2 - 1
     x = torch.rand((n, h, h, 3), generator=g, device=dev)
     v = torch.randn((n, k), generator=g, device=dev) * 0.01
-    d_b, x_b = space_to_depth(d), space_to_depth(x)
 
-    def plain(v_, d_, x_, eps):
-        return fused_perturb_reference(v_, d_.reshape(k, -1), x_.reshape(x_.shape[0], -1),
-                                       eps).reshape(x_.shape)
+    def plain(eps):
+        return fused_perturb_reference(v, d.reshape(k, -1), x.reshape(n, -1), eps).reshape(x.shape)
 
-    rows = {}
-    for label, (dd, xx) in (("n128", (d, x)), ("blocked", (d_b, x_b))):
-        err = max(float((fused_perturb(v, dd, xx, eps) - plain(v, dd, xx, eps)).abs().max())
-                  for eps in (EPS, float("inf")))
-        ms = _time_ms(lambda: fused_perturb(v, dd, xx, EPS))
-        plain_ms = _time_ms(lambda: plain(v, dd, xx, EPS))
-        bound_ms, bound_by = fused_perturb_bound_ms(n, k, m)
-        rows[label] = {"shape": [n, k, m], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                       "bound_share": bound_ms / ms}
-        print(f"fused_perturb [{label}: N={n} K={k} M={m}, D {tuple(dd.shape)}]: max_abs_err "
-              f"{err:.3e} (tol 1e-5), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
-        if not err <= 1e-5:
-            raise AssertionError(f"fused_perturb [{label}] disagrees with its twin: {err}")
-    same = float((space_to_depth(fused_perturb(v, d, x, EPS)) - fused_perturb(v, d_b, x_b, EPS))
-                 .abs().max())
-    print(f"  blocked against the unblocked launch, blocked afterwards: max_abs_diff {same:.3e}")
-    if not same <= 1e-6:
-        raise AssertionError(f"fused_perturb on the blocked layout is not the permuted result: {same}")
-
-    def adamw_inputs(flat):
-        gg = torch.Generator(device=dev).manual_seed(9)
-        return (torch.rand(flat.shape, generator=gg, device=dev) * 2.4 - 1.2,
-                torch.randn(flat.shape, generator=gg, device=dev) * 1e-3,
-                torch.randn(flat.shape, generator=gg, device=dev) * 1e-4,
-                torch.rand(flat.shape, generator=gg, device=dev) * 1e-6)
-
-    d_flat = space_to_depth(d).reshape(k, -1)
-    args = adamw_inputs(d_flat)
-    want = fused_adamw_project_reference(*args, 3, 0.01, clip_val=1.0)
-    got = [t.clone() for t in args]
-    fused_adamw_project(*got, 3, 0.01, 1.0)
-    err = max(float((got[0] - want[0]).abs().max()), float((got[2] - want[1]).abs().max()),
-              float(((got[3] - want[2]).abs() / want[2].abs().clamp_min(1e-30)).max()))
-    scratch = [t.clone() for t in args]
-    ms = _time_ms(lambda: fused_adamw_project(*scratch, 3, 0.01, 1.0))
-    plain_ms = _time_ms(lambda: fused_adamw_project_reference(*scratch, 3, 0.01))
-    bound_ms, bound_by = fused_adamw_project_bound_ms(d_flat.numel())
-    print(f"fused_adamw_project [blocked D {tuple(d_flat.shape)} in the space-to-depth column "
-          f"order]: max_abs_err {err:.3e} (tol 1e-6; nu relative), kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not err <= 1e-6:
-        raise AssertionError(f"fused_adamw_project on the blocked layout disagrees: {err}")
-    adamw_row = {"blocked": {"shape": list(d_flat.shape), "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                             "library_ms": None, "bound_share": bound_ms / ms}}
-    return rows, adamw_row
+    err = max(float((fused_perturb(v, d, x, eps) - plain(eps)).abs().max())
+              for eps in (EPS, float("inf")))
+    ms = _time_ms(lambda: fused_perturb(v, d, x, EPS))
+    plain_ms = _time_ms(lambda: plain(EPS))
+    bound_ms, bound_by = fused_perturb_bound_ms(n, k, m)
+    print(f"fused_perturb [n128: N={n} K={k} M={m}]: max_abs_err {err:.3e} (tol 1e-5), kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{bound_ms / ms:.1%} of it)")
+    if not err <= 1e-5:
+        raise AssertionError(f"fused_perturb [n128] disagrees with its twin: {err}")
+    return {"shape": [n, k, m], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_share": bound_ms / ms}
 
 
 def _save_dictionary(dev, cache, model: str, size: int, k: int = 100):
@@ -2779,29 +2710,28 @@ S2D_GRAD_TOL = 2e-2
 
 
 def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3,
-                    layout=None, tol: float = S2D_GRAD_TOL) -> dict:
-    """The S2D stem on the card, batch 2. The stem alone (conv and
-    BatchNorm on the space-to-depth blocks, ``models.resnet.s2d_stem``)
-    against the plain ``conv1``/``bn1``: its output and its input gradient
-    under a random cotangent within 1e-5 of their largest values. Then
-    every fp32 build of ``model`` on the card and on the CPU: the plain
-    victim, the victim built with ``stem_s2d``, the one built as
-    ``--fast-victim`` builds it (``stem_s2d``, then the BatchNorm fold) and
-    the blocked twin, each against the plain victim computed in float64 on
-    the CPU: logits within 1e-4 of the largest logit, and the CW input
-    gradient (at the plain victim's predicted labels, as an attack takes
-    it) within ``tol`` in relative l2. Not elementwise, and not against
-    another fp32 run: at 224x224 some ReLU inputs and max-pool windows of a
-    random ResNet-50 lie within fp32 rounding of a tie, and each summation
-    order routes their gradient its own way, so each fp32 build sits up to
-    1e-2 from the exact gradient, by seed, device and layout. ``seed``
-    draws the images; ``layout`` forces the fp32 nets into that memory
-    format (None: the victim's own). Returns {build: (logits error,
-    gradient rel l2)}."""
+                    layout=None, tol: float = S2D_GRAD_TOL, n_timed: int = 64) -> dict:
+    """The S2D stem on the card, batch 2. The stem alone (conv and BatchNorm
+    on the space-to-depth blocks, ``models.resnet.s2d_stem``) against the
+    plain ``conv1``/``bn1``: its output and its input gradient under a random
+    cotangent within 1e-5 of their largest values; then both stems' forward
+    and input gradient timed at batch ``n_timed``, the S2D stem's with its
+    space-to-depth. Then every fp32 build of ``model`` on the card and on the
+    CPU: the plain victim, the victim built with ``stem_s2d`` and the one
+    built as ``--fast-victim`` builds it (``stem_s2d``, then the BatchNorm
+    fold), each against the plain victim computed in float64 on the CPU:
+    logits within 1e-4 of the largest logit, and the CW input gradient (at the
+    plain victim's predicted labels, as an attack takes it) within ``tol`` in
+    relative l2. Not elementwise, and not against another fp32 run: at 224x224
+    some ReLU inputs and max-pool windows of a random ResNet-50 lie within
+    fp32 rounding of a tie, and each summation order routes their gradient its
+    own way, so each fp32 build sits up to 1e-2 from the exact gradient, by
+    seed, device and layout. ``seed`` draws the images; ``layout`` forces the
+    fp32 nets into that memory format (None: the victim's own). Returns
+    {build: (logits error, gradient rel l2)}."""
     import copy
 
-    from dl_attack_on_imagenet_tpu_torch.models import (
-        blocked_twin, create_model, depth_to_space, space_to_depth)
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
     from dl_attack_on_imagenet_tpu_torch.models.fold import fold_victim
     from dl_attack_on_imagenet_tpu_torch.models.layers import space_to_depth_nchw
     from dl_attack_on_imagenet_tpu_torch.models.resnet import s2d_stem
@@ -2816,19 +2746,30 @@ def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3
     on_dev = create_model(model, input_size=size, device=dev, state_dict=sd)
     xn = on_dev.norm(x.to(dev).permute(0, 3, 1, 2)).contiguous(memory_format=on_dev.memory_format)
     net = on_dev.net
-    stems = []
-    for stem in (lambda t: net.bn1(net.conv1(t)),
-                 lambda t: s2d_stem(space_to_depth_nchw(t), net.conv1, net.bn1)):
+    stems = {"plain": lambda t: net.bn1(net.conv1(t)),
+             "s2d": lambda t: s2d_stem(space_to_depth_nchw(t), net.conv1, net.bn1)}
+    outs = []
+    for stem in stems.values():
         xt = xn.clone().requires_grad_(True)
         y = stem(xt)
         co = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
         (grad,) = torch.autograd.grad((y * co).sum(), xt)
-        stems.append((y.detach(), grad))
-    errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(*stems)]
+        outs.append((y.detach(), grad))
+    errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(*outs)]
     print(f"s2d stem {model} at {size}x{size}, the stem alone on the card: output max_abs_err "
           f"{errs[0]:.3e}, input gradient {errs[1]:.3e}, each of its largest value (tol 1e-5)")
     if not max(errs) <= 1e-5:
-        raise AssertionError(f"s2d stem: the blocked stem disagrees with conv1/bn1: {errs}")
+        raise AssertionError(f"s2d stem: the S2D stem disagrees with conv1/bn1: {errs}")
+    xb = torch.rand((n_timed, size, size, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    xb = on_dev.norm(xb.permute(0, 3, 1, 2)).contiguous(memory_format=on_dev.memory_format)
+    for name, stem in stems.items():
+        xt = xb.clone().requires_grad_(True)
+        co = torch.randn(stem(xt).shape, generator=torch.Generator(device=dev).manual_seed(6),
+                         device=dev)
+        ms = _time_ms(lambda: torch.autograd.grad((stem(xt) * co).sum(), xt), iters=20)
+        print(f"s2d stem {model}: the {name} stem alone at b{n_timed}, forward and input "
+              f"gradient {ms:.3f} ms")
 
     net64, norm64 = copy.deepcopy(plain.net).double(), copy.deepcopy(plain.norm).double()
     x64 = x.double().requires_grad_(True)
@@ -2839,13 +2780,13 @@ def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3
         raise AssertionError("s2d stem: the CW input gradient is 0, nothing would be compared")
     scale = max(1.0, float(logits64.abs().max()))
 
-    def run(victim, d, blocked=False):
+    def run(victim, d):
         if layout is not None:
             victim.net.to(memory_format=layout)
-        xt = (space_to_depth(x) if blocked else x).to(d).requires_grad_(True)
+        xt = x.to(d).requires_grad_(True)
         logits = victim(xt)
         (grad,) = torch.autograd.grad(attack_loss(logits, labels.to(d), loss="logits"), xt)
-        grad = (depth_to_space(grad) if blocked else grad).cpu().double()
+        grad = grad.cpu().double()
         return (float((logits.detach().cpu().double() - logits64).abs().max()),
                 float((grad - grad64).norm() / grad64.norm()))
 
@@ -2857,7 +2798,6 @@ def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3
         rows[f"plain {where}"] = run(plain if d == cpu else on_dev, d)
         rows[f"stem_s2d {where}"] = run(s2d, d)
         rows[f"--fast-victim {where}"] = run(fast, d)
-        rows[f"blocked twin {where}"] = run(blocked_twin(s2d), d, blocked=True)
     fmt = "own" if layout is None else str(layout).removeprefix("torch.")
     print(f"s2d stem {model}, images seed {seed}, fp32 nets in the {fmt} layout, against the "
           f"plain victim in float64 (|logits| up to {scale:.3e}, |gradient| up to "
@@ -2870,138 +2810,21 @@ def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3
     return rows
 
 
-def blocked_phase(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100,
-                  n_learn: int = 128, n_steps: int = 10):
-    """The space-to-depth layout on ``model`` with an S2D stem, each item in
-    both layouts with both walls: the stem alone (forward and input
-    gradient, CUDA events); 10 chained ``gd`` steps at b64 (timed and
-    traced) and 3 more under deterministic cuDNN held against each other;
-    a supervised DDrague batch of ``n`` served through the twin; learning
-    on ``n_learn`` images at b64 for 2 epochs through ``ADIL`` with
-    ``pipeline_epochs`` True and False (D and v within 1e-5 under
-    deterministic cuDNN); and data-parallel learning at world size 1 with
-    ``blocked=True`` against its serial replay on the twin (1e-5). Returns
-    the (fused_perturb, fused_adamw_project) launches."""
+def pipeline_phase(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100,
+                   n_learn: int = 128) -> int:
+    """``ADIL`` learning on ``model`` with an S2D stem, ``n_learn`` images at
+    b``n`` for 2 epochs, with ``pipeline_epochs`` True and False in turns:
+    D and v within 1e-5 of each other under deterministic cuDNN, and each
+    run's wall. Returns the fused_adamw_project launches."""
     from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
-    from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
-    from dl_attack_on_imagenet_tpu_torch.models import (
-        blocked_twin, create_model, depth_to_space, space_to_depth)
-    from dl_attack_on_imagenet_tpu_torch.models.layers import space_to_depth_nchw
-    from dl_attack_on_imagenet_tpu_torch.models.resnet import s2d_stem
-    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
-    from dl_attack_on_imagenet_tpu_torch.parallel import auto_initialize, data_mesh
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
+    from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project
     from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
 
-    perturb, adamw = 0, 0
+    adamw = 0
     victim = create_model(model, input_size=size, device=dev, seed=0, stem_s2d=True)
-    twin = blocked_twin(victim)
-    shape, b_shape = (size, size, 3), (size // 2, size // 2, 12)
-    cfg = core.AdilConfig(eps=EPS, n_atoms=k, loss="logits", batch_size=n)
-    g = torch.Generator(device=dev).manual_seed(1)
-    images = torch.rand((n,) + shape, generator=g, device=dev)
-    state0 = core.init_state(g, shape, n, cfg)
-    idx, mask = torch.arange(n, device=dev), torch.ones(n, device=dev)
-
-    def layout(blocked: bool):
-        state = core.TrainState(**{f: (v.clone() if torch.is_tensor(v) else v)
-                                   for f, v in vars(state0).items()})
-        if blocked:
-            state.d = space_to_depth(core.d_image(state.d, shape)).reshape(k, -1)
-            state.d_mu, state.d_nu = torch.zeros_like(state.d), torch.zeros_like(state.d)
-            return twin, state, space_to_depth(images)
-        return victim, state, images
-
-    # The stem alone at b64: forward and input gradient under a random
-    # cotangent, cuDNN's 3-channel 7x7/s2 convolution against the 4x4/s1
-    # one over 12 channels (and its pad).
-    net = victim.net
-    xn = victim.norm(images.permute(0, 3, 1, 2)).contiguous(memory_format=victim.memory_format)
-    for name, stem, inp in (("standard", lambda t: net.bn1(net.conv1(t)), xn),
-                            ("blocked", lambda t: s2d_stem(t, net.conv1, net.bn1),
-                             space_to_depth_nchw(xn))):
-        inp = inp.detach().requires_grad_(True)
-        co = torch.randn(stem(inp).shape, generator=g, device=dev)
-        ms = _time_ms(lambda: torch.autograd.grad((stem(inp) * co).sum(), inp), iters=20)
-        print(f"blocked phase: the stem alone {name} at b{n} (input {tuple(inp.shape)}): "
-              f"forward and input gradient {ms:.3f} ms")
-
-    walls = {}
-    for blocked in (False, True):
-        name = "blocked" if blocked else "standard"
-        model_, state, xs = layout(blocked)
-        labels = core.predict_labels(model_, xs)
-        step = core.make_train_step(model_, cfg, "both")
-        step(state, xs, labels, idx, mask)  # warm-up
-        scan = core.make_train_scan(model_, cfg, "both", n_steps=n_steps)
-        torch.cuda.synchronize()
-        _zero_counts()
-        t0 = time.perf_counter()
-        losses, _ = scan(state, xs, labels, idx, mask)
-        torch.cuda.synchronize()
-        walls[name] = (time.perf_counter() - t0) / n_steps
-        launches = fused_adamw_project.launches
-        print(f"blocked phase: gd step {name} on {model} (S2D stem) at b{n} K={k} {size}x{size}: "
-              f"{walls[name] * 1e3:.2f} ms/step over {n_steps} chained steps, "
-              f"fused_adamw_project launches {launches}, loss {float(losses[0]):.4f} -> "
-              f"{float(losses[-1]):.4f}")
-        if launches != 2 * n_steps or not bool(torch.isfinite(losses).all()):
-            raise AssertionError(f"blocked phase {name}: {launches} launches or a bad loss")
-        adamw += launches
-        print_device_breakdown(f"train step {name}", lambda: step(state, xs, labels, idx, mask),
-                               walls[name])
-    print(f"blocked phase: gd step blocked/standard {walls['blocked'] / walls['standard']:.3f}")
-    def three_steps(blocked: bool):
-        model_, state, xs = layout(blocked)
-        step = core.make_train_step(model_, cfg, "both")
-        labels = core.predict_labels(model_, xs)
-        loss = [float(step(state, xs, labels, idx, mask)[0]) for _ in range(3)]
-        d = depth_to_space(core.d_image(state.d, b_shape)) if blocked else state.d
-        return d.reshape(k, -1), state.v, loss
-
-    spread = three_steps(False)[0]
-    with _deterministic_cudnn():
-        runs = {blocked: three_steps(blocked) for blocked in (False, True)}
-    spread = float((spread - runs[False][0]).norm() / (runs[False][0] - state0.d).norm())
-    print(f"blocked phase: 3 gd steps, losses standard {runs[False][2]} blocked {runs[True][2]}")
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs[True][2], runs[False][2]))
-    if not loss_err <= 1e-5:
-        raise AssertionError(f"blocked phase: the layouts' losses part: {loss_err}")
-    _layouts_close("gd steps blocked against standard, D", runs[True][0], runs[False][0],
-                   state0.d, spread)
-    _layouts_close("gd steps blocked against standard, v", runs[True][1], runs[False][1],
-                   state0.v)
-
-    with tempfile.TemporaryDirectory() as root:
-        cache = ArtifactCache(root)
-        _save_dictionary(dev, cache, victim.name, size, k)
-        served = {}
-        for blocked in ("auto", False, "again"):
-            attack = ADIL(victim, eps=EPS, n_atoms=k, loss="logits", steps_inference=30,
-                          cache=cache, blocked=blocked != "again" and blocked)
-            if blocked == "again":  # the standard layout once more, for its spread
-                served[blocked] = attack(images, None)
-                continue
-            attack(images, None)  # warm-up
-            torch.cuda.synchronize()
-            _zero_counts()
-            t0 = time.perf_counter()
-            served[blocked] = attack(images, None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = fused_perturb.launches
-            via = "through the twin" if blocked else "standard"
-            print(f"blocked phase: supervised DDrague b{n} {via}: wall {wall:.3f} s, "
-                  f"fused_perturb launches {launches}")
-            if launches != 1:
-                raise AssertionError(f"blocked phase serving: {launches} launches")
-            perturb += launches
-        spread = float((served["again"] - served[False]).norm()
-                       / (served[False] - images).norm())
-        _layouts_close("DDrague through the twin against standard", served["auto"],
-                       served[False], images, spread)
-
     rs = np.random.default_rng(2)
-    data = (rs.random((n_learn,) + shape, dtype=np.float32), np.zeros((n_learn,), np.int64))
+    data = (rs.random((n_learn, size, size, 3), dtype=np.float32), np.zeros((n_learn,), np.int64))
     learned, walls = {}, {True: [], False: []}
     with _deterministic_cudnn():
         for pipeline in (False, True, True, False):  # in turns, for the walls
@@ -3016,50 +2839,24 @@ def blocked_phase(dev, model: str = "resnet50", size: int = 224, n: int = 64, k:
                 walls[pipeline].append(time.perf_counter() - t0)
                 launches = fused_adamw_project.launches
                 v = ArtifactCache(root).load("ImageNet", model=victim.name)["v"]
-            print(f"blocked phase: ADIL learning pipeline_epochs={pipeline} (trained blocked: "
-                  f"{attack.trained_blocked}), {n_learn} images b{n} 2 epochs: wall "
-                  f"{walls[pipeline][-1]:.3f} s (the label pass included), "
-                  f"fused_adamw_project launches {launches}")
+            print(f"pipeline phase: ADIL learning pipeline_epochs={pipeline} on {model} (S2D "
+                  f"stem), {n_learn} images b{n} 2 epochs: wall {walls[pipeline][-1]:.3f} s (the "
+                  f"label pass included), fused_adamw_project launches {launches}")
             want = 2 * 2 * -(-n_learn // n)
-            if launches != want or not attack.trained_blocked:
-                raise AssertionError(f"blocked phase learning: {launches} launches (the path "
-                                     f"makes {want}), blocked {attack.trained_blocked}")
+            if launches != want:
+                raise AssertionError(f"pipeline phase: {launches} launches (the path makes "
+                                     f"{want})")
             adamw += launches
             learned.setdefault(pipeline, (attack.dictionary, torch.as_tensor(v),
                                           attack.history["loss"]))
     err = max(float((learned[True][0] - learned[False][0]).abs().max()),
               float((learned[True][1] - learned[False][1]).abs().max()))
-    print(f"blocked phase: pipelined against serial: D and v max_abs_err {err:.3e} (tol 1e-5), "
+    print(f"pipeline phase: pipelined against serial: D and v max_abs_err {err:.3e} (tol 1e-5), "
           f"losses {learned[True][2]} / {learned[False][2]}; mean walls {np.mean(walls[True]):.3f}"
           f" / {np.mean(walls[False]):.3f} s")
     if not err <= 1e-5:
-        raise AssertionError(f"blocked phase: the pipelined epochs part from the serial: {err}")
-
-    auto_initialize(device=dev)
-    mesh = data_mesh()
-    with tempfile.TemporaryDirectory() as root, _deterministic_cudnn():
-        torch.cuda.synchronize()
-        _zero_counts()
-        t0 = time.perf_counter()
-        attack = ADIL(victim, eps=EPS, n_atoms=k, batch_size=n, loss="logits", steps=2,
-                      data_train=data, cache=ArtifactCache(root), mesh=mesh, seed=0,
-                      blocked=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = fused_adamw_project.launches
-        v = torch.as_tensor(ArtifactCache(root).load("ImageNet", model=victim.name)["v"],
-                            device=dev)
-        state = _replay(dev, twin, space_to_depth(torch.as_tensor(data[0])), attack.cfg, mesh,
-                        1, 2)
-    err = max(float((attack.dictionary - depth_to_space(core.d_image(state.d, b_shape)))
-                    .abs().max()), float((v - state.v[:n_learn]).abs().max()))
-    print(f"blocked phase: ADIL(mesh=data_mesh(), blocked=True) at world size 1: wall {wall:.2f} s, "
-          f"blocked {attack.trained_blocked}, fused_adamw_project launches {launches}; against "
-          f"the serial replay on the twin: D and v max_abs_err {err:.3e} (tol 1e-5)")
-    if not (err <= 1e-5 and attack.trained_blocked and launches == 2 * 2 * -(-n_learn // n)):
-        raise AssertionError(f"blocked phase dp: {err}, {launches} launches")
-    adamw += launches
-    return perturb, adamw
+        raise AssertionError(f"pipeline phase: the pipelined epochs part from the serial: {err}")
+    return adamw
 
 
 @contextlib.contextmanager
@@ -3166,20 +2963,19 @@ def bf16_victim(dev, root: str, model: str = "resnet50", size: int = 224, n: int
     """A bf16 victim (``create_model(dtype=torch.bfloat16)``) beside the fp32
     one on ``model``: 10 chained ``gd`` steps at b``n``, a supervised DDrague
     batch of ``n`` (``steps`` steps) and a supervised AdamW-codes batch
-    through ``ADIL``, one ``cli.generate`` batch of ``batch`` (supervised,
-    the classifier tempered), then ``bench.py``'s configuration (bf16, the
-    S2D stem on blocked input, BatchNorms folded: the step and a DDrague
-    batch through the twin). Each path prints its wall, launches and
-    fooled share, the step and DDrague their busy share; every tensor
-    handed to a kernel must be fp32. Returns the (fused_perturb,
-    fused_adamw_project) launches of the timed runs."""
+    through ``ADIL``, one ``cli.generate`` batch of ``batch`` (supervised, the
+    classifier tempered), then ``bench.py``'s configuration (bf16, the S2D
+    stem, BatchNorms folded: the step and a DDrague batch). Each path prints
+    its wall, launches and fooled share, the step and DDrague their busy
+    share; every tensor handed to a kernel must be fp32. Returns the
+    (fused_perturb, fused_adamw_project) launches of the timed runs."""
     import dataclasses
     import functools
 
     from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
     from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
     from dl_attack_on_imagenet_tpu_torch.cli import _victim, dataset, generate
-    from dl_attack_on_imagenet_tpu_torch.models import blocked_twin, create_model, space_to_depth
+    from dl_attack_on_imagenet_tpu_torch.models import create_model
     from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
     from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
 
@@ -3267,32 +3063,27 @@ def bf16_victim(dev, root: str, model: str = "resnet50", size: int = 224, n: int
             if fused_perturb.launches != 1 or summary["total"] != batch:
                 raise AssertionError(f"{tag} generate: {fused_perturb.launches} launches")
 
-        # bench.py's configuration: bf16, the S2D stem on blocked input,
-        # BatchNorms folded; the gd step and DDrague through the twin.
+        # bench.py's configuration: bf16, the S2D stem, BatchNorms folded.
         victim = create_model(model, input_size=size, device=dev, seed=0, dtype=torch.bfloat16,
                               stem_s2d=True, fold_bn=True)
-        twin = blocked_twin(victim)
         state = _state_copy(start)
-        state.d = space_to_depth(core.d_image(state.d, (size, size, 3))).reshape(k, -1)
-        state.d_mu, state.d_nu = torch.zeros_like(state.d), torch.zeros_like(state.d)
-        xs = space_to_depth(images)
-        labels = core.predict_labels(twin, xs)
-        ms, launches, losses = _timed_steps(twin, cfg, state, xs, labels, n_steps)
+        labels = core.predict_labels(victim, images)
+        ms, launches, losses = _timed_steps(victim, cfg, state, images, labels, n_steps)
         adamw += launches
         walls["bench", "step"] = ms / 1e3
         print_device_breakdown("bench.py's configuration train step", lambda: core.make_train_step(
-            twin, cfg, "both")(state, xs, labels, idx, mask), ms / 1e3)
-        print(f"bf16 victim phase, bench.py's configuration (bf16, stem_s2d on blocked input, "
-              f"fold_bn): gd step {ms:.2f} ms/step, fused_adamw_project launches {launches}, "
-              f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f}")
+            victim, cfg, "both")(state, images, labels, idx, mask), ms / 1e3)
+        print(f"bf16 victim phase, bench.py's configuration (bf16, stem_s2d, fold_bn): gd step "
+              f"{ms:.2f} ms/step, fused_adamw_project launches {launches}, loss "
+              f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}")
         attack = ADIL(victim, eps=EPS, n_atoms=k, loss="logits", steps_inference=steps,
-                      cache=cache, blocked=True)
-        attack(images)  # warm-up, and the blocked dictionary's build
+                      cache=cache)
+        attack(images)  # warm-up
         _zero_counts()
         adv, wall = _timed_run(lambda: attack(images))
         perturb += fused_perturb.launches
         walls["bench", "supervised"] = wall
-        print(f"bf16 victim phase, bench.py's configuration: DDrague through the twin {wall:.3f} "
+        print(f"bf16 victim phase, bench.py's configuration: DDrague {wall:.3f} "
               f"s, fused_perturb launches {fused_perturb.launches}, fooled share "
               f"{_fooled_share(victim, adv, images):.4f}")
         if fused_perturb.launches != 1 or not bool(torch.isfinite(adv).all()):
@@ -3436,20 +3227,14 @@ def main() -> None:
     kernels[0]["adilr"], kernels[1]["adilr"] = perturb_row, adamw_row
     for row, extra in zip(kernels, (perturb_row, adamw_row)):
         row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])
-    perturb_rows, adamw_row = timed("kernels at the new shapes", check_kernels_at_new_shapes, dev)
-    kernels[0].update(perturb_rows)
-    kernels[1].update(adamw_row)
-    for row, extra in ((kernels[0], perturb_rows["n128"]), (kernels[0], perturb_rows["blocked"]),
-                       (kernels[1], adamw_row["blocked"])):
-        row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])
+    kernels[0]["n128"] = timed("fused_perturb at N=128", check_fused_perturb_n128, dev)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], kernels[0]["n128"]["max_abs_err"])
     with tempfile.TemporaryDirectory() as root:
         perturb, blob, dicts, weights = timed("generate", generate_phase, dev, root)
         kernels[0]["launches"] += perturb
         kernels[0]["launches"] += timed("import", import_phase, dev, root)
         timed("s2d stems", check_s2d_stems, dev)
-        perturb, adamw = timed("blocked", blocked_phase, dev)
-        kernels[0]["launches"] += perturb
-        kernels[1]["launches"] += adamw
+        kernels[1]["launches"] += timed("pipeline", pipeline_phase, dev)
         timed("trace", trace_phase, dev, root, blob, dicts, weights)
         perturb, adamw = timed("bf16 victim", bf16_victim, dev, root)
         kernels[0]["launches"] += perturb

@@ -11,17 +11,6 @@ sampling, learning first where no dictionary exists) and
 ``forward_supervised_adamw``, each in fp32 or in the bf16 mixed precision
 of ``perturb_dtype="bfloat16"`` (``adil_core``).
 
-``blocked`` ("auto", True or False): where the victim has a space-to-depth
-stem (``models.blocked_twin``) and the images have an even size, the
-resident ``gd`` path trains in the stem's layout (images space-to-depth'd,
-D's columns permuted to match) and the supervised solvers serve through the
-twin on a cached blocked copy of D. Every step, clamp, projection, Gram
-matrix and squared norm is elementwise in D's columns or invariant under
-their permutation, so the trajectory is the standard one under a fixed
-column permutation. Artifacts always hold the presentation ``(K, H, W, C)``
-dictionary; ``trained_blocked`` says whether the last run trained blocked.
-The streamed, folder and ``alter`` paths train unblocked.
-
 ``pipeline_epochs`` ("auto", True or False): the resident ``gd`` loop
 enqueues epoch t+1 before the host reads epoch t's sums (the epoch's one
 sync), on a device snapshot of epoch t's state, so that the convergence
@@ -52,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..data import as_array_dataset, prefetch_to_device
-from ..models import VictimModel, blocked_twin, depth_to_space, space_to_depth
+from ..models import VictimModel
 from ..utils import ArtifactCache, MetricLogger, StepTimer, annotate
 from . import adil_core as core
 from .adil_core import AdilConfig
@@ -185,7 +174,6 @@ class ADIL(Attack):
         checkpoint_every: Optional[int] = None,
         resume: bool = True,
         metrics_log: Optional[str] = None,
-        blocked: Any = "auto",
         perturb_dtype: str = "float32",
         pipeline_epochs: Any = "auto",
     ):
@@ -219,11 +207,7 @@ class ADIL(Attack):
         self.stream = stream
         self.checkpoint_every = checkpoint_every
         self.resume = resume
-        self.blocked = blocked
         self.pipeline_epochs = pipeline_epochs
-        self.trained_blocked = False  # whether the last training run was blocked
-        self._train_blocked = False  # whether the run in progress is
-        self._blocked_d_cache = None
         self.metrics = MetricLogger(metrics_log)
         self.dictionary: Optional[torch.Tensor] = None
         self.history: dict = {}
@@ -309,23 +293,12 @@ class ADIL(Attack):
         return core.init_state(generator, image_shape, n, self.cfg, mode=mode,
                                d_init=self._load_warm_start())
 
-    def _blocked_victim(self, image_shape) -> Optional[VictimModel]:
-        """The victim's blocked twin where ``blocked`` allows it, the victim
-        has an S2D stem and the images an even size; else None."""
-        if not self.blocked or image_shape[0] % 2 or image_shape[1] % 2:
-            return None
-        return blocked_twin(self.victim)
-
-    def _set_blocked(self, on: bool) -> None:
-        self._train_blocked = self.trained_blocked = on
-
-    def _prepare(self, data_train, mode: str, twin: Optional[VictimModel] = None):
+    def _prepare(self, data_train, mode: str):
         """Dataset, its images and clean labels on the device, generator and
-        fresh state for a resident training run. With a blocked ``twin`` the
-        images and D are space-to-depth'd and the labels are the twin's. In
-        bf16 mode a ``gd`` run holds the images in bf16, after its labels
-        are taken from fp32: the step casts x to bf16 anyway, and the
-        epoch's gather moves half the bytes."""
+        fresh state for a resident training run. In bf16 mode a ``gd`` run
+        holds the images in bf16, after its labels are taken from fp32: the
+        step casts x to bf16 anyway, and the epoch's gather moves half the
+        bytes."""
         ds = as_array_dataset(data_train)
         unit = ("job", self._jobs, "prepare")
         with annotate("adil/prepare/copy", unit):
@@ -334,12 +307,8 @@ class ADIL(Attack):
         with annotate("adil/prepare/draws", unit):
             generator = self._generator()
             state = self._init(ds.image_shape, len(ds), generator, mode)
-            if twin is not None:
-                images = space_to_depth(images)
-                state.d = space_to_depth(core.d_image(state.d, ds.image_shape)).reshape(
-                    state.d.shape)
         with annotate("adil/prepare/labels", unit):
-            labels = core.predict_labels(twin or self.victim, images)
+            labels = core.predict_labels(self.victim, images)
         if mode == "gd" and self.cfg.compute_dtype is not None:
             images = images.to(self.cfg.compute_dtype)
         return ds, images, labels, generator, state
@@ -348,18 +317,10 @@ class ADIL(Attack):
         """The share of the val set that fresh codes on the training D fool
         (:func:`val_fooled`, on the presentation dictionary)."""
         ds = as_array_dataset(data_val)
-        d = self._present_d(d, ds.image_shape)
+        d = core.d_image(d, ds.image_shape)
         fooled = val_fooled(self.victim, d, ds, self.cfg, self.device)
         with annotate("sync/val_fooled"):
             return float(fooled) / len(ds)
-
-    def _present_d(self, d_flat: torch.Tensor, image_shape) -> torch.Tensor:
-        """The training D in its presentation shape (K, H, W, C), its
-        columns put back in pixel order where this run trains blocked."""
-        if self._train_blocked:
-            h, w, c = image_shape
-            return depth_to_space(core.d_image(d_flat, (h // 2, w // 2, 4 * c)))
-        return core.d_image(d_flat, image_shape)
 
     def _resolve_pipeline(self, images: torch.Tensor, state: core.TrainState) -> bool:
         """``pipeline_epochs``, with "auto" resolved against the device's
@@ -408,12 +369,10 @@ class ADIL(Attack):
     def _learn_gd(self, data_train, data_val) -> None:
         """Joint projected AdamW over (D, v), the dataset resident on the
         device: one gather per epoch into presliced batches, then the steps;
-        blocked and pipelined where those apply (see the module)."""
-        twin = self._blocked_victim(as_array_dataset(data_train).image_shape)
-        self._set_blocked(twin is not None)
-        ds, images, labels, generator, state = self._prepare(data_train, "gd", twin)
+        pipelined where that applies (see the module)."""
+        ds, images, labels, generator, state = self._prepare(data_train, "gd")
         n = len(ds)
-        step = core.make_train_step(twin or self.victim, self.cfg, "both")
+        step = core.make_train_step(self.victim, self.cfg, "both")
         history = self._resume(state, generator, "gd")
         timer = StepTimer(warmup=1)
 
@@ -435,7 +394,6 @@ class ADIL(Attack):
                 if self._end_epoch(t, "gd", state, generator, sums, n, history, data_val):
                     break
         self._finish(state, ds.image_shape, history, timer)
-        self._train_blocked = False
 
     def _pipelined(self, epoch, state, generator, n: int, history: dict, data_val,
                    timer: StepTimer) -> core.TrainState:
@@ -482,8 +440,7 @@ class ADIL(Attack):
     def _learn_gd_streamed(self, data_train, data_val) -> None:
         """Joint projected AdamW with the images on the host: batches flow to
         the device through the prefetching pipeline, for datasets larger
-        than the device holds. Same update as :meth:`_learn_gd`, unblocked."""
-        self._set_blocked(False)
+        than the device holds. Same update as :meth:`_learn_gd`."""
         ds = as_array_dataset(data_train)
         n = len(ds)
         generator = self._generator()
@@ -520,10 +477,9 @@ class ADIL(Attack):
         decodes, resizes and crops on its threads, batches flow to the device
         through the prefetching pipeline, and the loader's row indices
         address v. Padding slots (label -1) and files that failed to decode
-        (label -2) are masked out. Same update as :meth:`_learn_gd`, unblocked."""
+        (label -2) are masked out. Same update as :meth:`_learn_gd`."""
         from ..runtime import HostLoader
 
-        self._set_blocked(False)
         paths = [p for p, _ in folder.samples]
         n = len(paths)
         size = folder.image_size
@@ -573,8 +529,7 @@ class ADIL(Attack):
         """Alternating rounds: ``steps_inner`` epochs on v with D frozen, then
         ``steps_inner`` on D with v frozen. ``state.epoch`` counts rounds.
         The loss tracked is the last D epoch's normalized sum, as in the JAX
-        package. Always unblocked."""
-        self._set_blocked(False)
+        package."""
         ds, images, labels, generator, state = self._prepare(data_train, "alter")
         n = len(ds)
         step_v = core.make_train_step(self.victim, self.cfg, "v")
@@ -608,27 +563,21 @@ class ADIL(Attack):
             data_val=as_array_dataset(data_val) if data_val is not None else None,
             val_every=self.val_every or 0, d_init=self._load_warm_start(),
             checkpoint_every=self.checkpoint_every or 0, cache=self.cache,
-            ckpt_key=self._train_ckpt_key(distributed=True), resume=self.resume,
-            blocked=self.blocked)
-        self.trained_blocked = bool(history["blocked"])
+            ckpt_key=self._train_ckpt_key(distributed=True), resume=self.resume)
         self.timing = history.pop("timing")
         self._save(d, v, history)
 
     def _finish(self, state, image_shape, history: dict, timer: StepTimer) -> None:
         self.timing = timer.summary()
-        self._save(self._present_d(state.d, image_shape), state.v, history)
+        self._save(core.d_image(state.d, image_shape), state.v, history)
         if self.checkpoint_every:
             self._clear_train_state()
 
     # -- mid-training checkpoint: the port's own kind, so that a JAX
-    # -- train-state checkpoint in a shared cache is never resumed here. A
-    # -- blocked run's D and moments are column-permuted: its kind is its own.
+    # -- train-state checkpoint in a shared cache is never resumed here.
 
     def _train_ckpt_key(self, distributed: bool = False) -> dict:
-        if distributed:
-            kind = "dp_train_state_torch"
-        else:
-            kind = "train_state_s2d_torch" if self._train_blocked else "train_state_torch"
+        kind = "dp_train_state_torch" if distributed else "train_state_torch"
         return dict(model=self.model_name, kind=kind)
 
     def _save_train_state(self, state: core.TrainState, generator: torch.Generator,
@@ -693,26 +642,6 @@ class ADIL(Attack):
     def _images(self, images) -> torch.Tensor:
         return torch.as_tensor(images, dtype=torch.float32, device=self.device).contiguous()
 
-    def _blocked_dict(self, d: torch.Tensor) -> torch.Tensor:
-        """The blocked copy of the (fixed) dictionary, cached per D."""
-        cached = self._blocked_d_cache
-        if cached is None or cached[0] is not d:
-            cached = self._blocked_d_cache = (d, space_to_depth(d))
-        return cached[1]
-
-    def _blocked_supervised(self, solver, d: torch.Tensor, images: torch.Tensor):
-        """``solver`` (a supervised solver of ``adil_core``) run through the
-        blocked twin, or None where the twin does not apply. The Gram matrix
-        and so D's pseudo-inverse, every clamp and every squared norm are
-        invariant under the column permutation, so this is the standard
-        solve in another layout. Unsupervised sampling stays standard: it
-        takes no input gradient."""
-        twin = self._blocked_victim(tuple(images.shape[1:]))
-        if twin is None:
-            return None
-        return depth_to_space(solver(twin, self._blocked_dict(d), space_to_depth(images),
-                                     self.cfg))
-
     def forward(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Attack a batch with the memoized dictionary, by ``attack`` mode;
         where there is none yet, learn one on this batch first."""
@@ -724,9 +653,6 @@ class ADIL(Attack):
             d = self._load_dictionary()
             images = self._images(images)
             if self.attack_mode == "supervised":
-                adv = self._blocked_supervised(core.supervised_ddrague, d, images)
-                if adv is not None:
-                    return adv
                 return core.supervised_ddrague(self.victim, d, images, self.cfg)
             self._rng_calls += 1
             generator = torch.Generator(device=images.device)
@@ -739,7 +665,4 @@ class ADIL(Attack):
         with annotate("adil/forward", ("forward", self._calls)):
             d = self._load_dictionary()
             images = self._images(images)
-            adv = self._blocked_supervised(core.supervised_adamw_codes, d, images)
-            if adv is not None:
-                return adv
             return core.supervised_adamw_codes(self.victim, d, images, self.cfg)

@@ -9,8 +9,7 @@ is a frozen function from [0, 1] NHWC images to logits: eval mode, no
 weight gradients, and every convolution in the memory layout that its
 dtype's kernels take (:func:`victim_memory_format`): contiguous NCHW for
 fp32, ``channels_last`` for bf16. The ResNets, DenseNet and GoogLeNet take
-``stem_s2d`` (their stem on 2x2 space-to-depth blocks); :func:`blocked_twin`
-gives such a victim's twin over the blocked images themselves.
+``stem_s2d`` (their stem on 2x2 space-to-depth blocks of the input).
 ``dtype=torch.bfloat16`` builds a bf16 victim: fp32 parameters, bf16
 compute layer by layer as the JAX package's ``dtype=jnp.bfloat16`` victim
 (``models.layers``), bf16 logits.
@@ -120,23 +119,17 @@ class VictimModel(nn.Module):
     a bf16 one); a bf16 net takes it as it is, each layer casting to bf16
     where Flax's does, and returns bf16 logits, which the attacks cast to
     fp32 before a loss, as the JAX package's do.
-
-    ``blocked_input=True`` makes the victim of the 2x2 space-to-depth
-    images ``(N, S/2, S/2, 12)`` (``layers.space_to_depth``) of a net with
-    an S2D stem; the normalization tiles over the 12 channels.
     """
 
     def __init__(self, name: str, net: nn.Module, input_size: int,
                  normalize: bool = True, mean: Sequence[float] = IMAGENET_MEAN,
-                 std: Sequence[float] = IMAGENET_STD, blocked_input: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 std: Sequence[float] = IMAGENET_STD, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.name = name
         self.net = net
         self.input_size = input_size
         self.num_classes = net.num_classes
         self.mean, self.std = tuple(mean), tuple(std)
-        self.blocked_input = blocked_input
         self.dtype = resolve_dtype(dtype)
         self.norm = Normalize(mean, std) if normalize else None
 
@@ -161,10 +154,7 @@ class VictimModel(nn.Module):
             x = self.norm(x)
         if self.dtype == torch.float32:
             x = x.to(torch.float32, memory_format=self.memory_format)
-        x = x.contiguous(memory_format=self.memory_format)
-        if self.blocked_input:
-            return self.net(x, blocked_input=True)
-        return self.net(x)
+        return self.net(x.contiguous(memory_format=self.memory_format))
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Hard labels."""
@@ -214,7 +204,6 @@ def create_model(
     device: DeviceLike = None,
     fold_bn: bool = False,
     stem_s2d: bool = False,
-    blocked_input: bool = False,
     dtype: torch.dtype = torch.float32,
     **model_kwargs,
 ) -> VictimModel:
@@ -229,9 +218,8 @@ def create_model(
     built for their input size; ``model_kwargs`` go to the constructor
     (``hidden`` for VGG, ``transform_input`` for GoogLeNet and Inception).
     ``stem_s2d=True`` builds a ResNet, DenseNet or GoogLeNet with the S2D
-    stem (the same parameters); ``blocked_input=True`` builds it as the
-    victim of blocked images (see :class:`VictimModel`). Other families
-    refuse both with a ``TypeError``, as the JAX package's do.
+    stem (the same parameters). Other families refuse it with a
+    ``TypeError``, as the JAX package's do.
     ``dtype`` is the compute dtype, ``torch.float32`` or ``torch.bfloat16``:
     the parameters stay fp32 and a bf16 victim computes and returns bf16
     (see :class:`VictimModel`). The 4-D weights take the dtype's
@@ -250,7 +238,7 @@ def create_model(
         num_classes, normalize = min(num_classes, 10), False
     if "input_size" in inspect.signature(ctor).parameters:
         model_kwargs["input_size"] = size
-    if stem_s2d or blocked_input:
+    if stem_s2d:
         model_kwargs["stem_s2d"] = True
     with torch.device(dev):
         net = ctor(num_classes=num_classes, dtype=dtype, **model_kwargs)
@@ -269,38 +257,14 @@ def create_model(
     if fold_bn:
         fold_batchnorms_(net)
     net = net.to(memory_format=victim_memory_format(dtype))
-    victim = VictimModel(key, net, size, normalize, mean, std, blocked_input, dtype)
+    victim = VictimModel(key, net, size, normalize, mean, std, dtype)
     victim.to(dev)
     victim.eval()
     victim.requires_grad_(False)
     return victim
 
 
-def blocked_twin(victim: VictimModel) -> Optional[VictimModel]:
-    """The victim of the space-to-depth images of ``victim``'s images: the
-    same net (the same parameters, folded or not) and the same normalization,
-    with GoogLeNet's ``transform_input`` kept inside the net; None where the
-    victim's net has no S2D stem, as in the JAX package, whose plain stem
-    keeps its parameters elsewhere. Memoized on the victim (outside its
-    submodules, so that its ``state_dict`` does not change). The twin keeps
-    the victim's dtype and, sharing its net, its memory format."""
-    if victim.blocked_input:
-        return victim
-    if not getattr(victim.net, "stem_s2d", False):
-        return None
-    twin = victim.__dict__.get("_blocked_twin")
-    if twin is None:
-        twin = VictimModel(victim.name, victim.net, victim.input_size,
-                           victim.norm is not None, victim.mean, victim.std,
-                           blocked_input=True, dtype=victim.dtype)
-        twin.to(victim.device)
-        twin.eval()
-        twin.requires_grad_(False)
-        victim.__dict__["_blocked_twin"] = twin
-    return twin
-
-
-__all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size", "blocked_twin",
+__all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size",
            "create_model", "densenet121", "densenet169", "depth_to_space", "fast_victim_kwargs",
            "googlenet", "inception_v3", "mobilenet_v2", "resnet18", "resnet34", "resnet50",
            "space_to_depth", "swin_b", "swin_tiny", "tiny_cnn", "vgg11", "vgg16", "vgg19",

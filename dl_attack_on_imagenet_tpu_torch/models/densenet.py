@@ -1,9 +1,9 @@
 """DenseNet family (121/169) as torchvision-shaped modules.
 
-Port of ``dl_attack_on_imagenet_tpu/models/densenet.py``. ``stem_s2d`` and
-``forward(x, blocked_input=True)`` run the 7x7/s2 stem on 2x2 space-to-depth
-blocks, as the ResNets do (``resnet.s2d_stem``), on the same ``conv0``
-kernel, with the stem's ReLU after its max pool. Each dense layer is
+Port of ``dl_attack_on_imagenet_tpu/models/densenet.py``. ``stem_s2d`` runs
+the 7x7/s2 stem on 2x2 space-to-depth blocks, as the ResNets do
+(``resnet.s2d_stem``), on the same ``conv0`` kernel, with the stem's ReLU
+after its max pool. Each dense layer is
 pre-activation, BN -> ReLU -> 1x1 conv -> BN -> ReLU -> 3x3 conv, and
 concatenates its output to its input; a transition is BN -> ReLU -> 1x1
 conv -> 2x2 average pool. The names are torchvision's
@@ -80,8 +80,8 @@ class DenseNet(nn.Module):
         self.num_classes = num_classes
         set_compute_dtype(self, dtype)
 
-    def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
-        xb = stem_blocks(x, self.stem_s2d, blocked_input)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xb = stem_blocks(x, self.stem_s2d)
         if xb is None:
             x = self.features(x)
         else:

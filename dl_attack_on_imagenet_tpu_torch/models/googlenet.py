@@ -1,20 +1,20 @@
 """GoogLeNet (Inception v1) as a torchvision-shaped module.
 
-Port of ``dl_attack_on_imagenet_tpu/models/googlenet.py``. ``stem_s2d`` and
-``forward(x, blocked_input=True)`` run the 7x7/s2 stem on 2x2 space-to-depth
-blocks, as the ResNets do (``resnet.s2d_stem``), on the same ``conv1``
-kernel and BatchNorm (eps 1e-3), with the stem's ReLU after its max pool;
-``transform_input`` tiles over the blocked channels. As there: every conv -> BN -> ReLU is torchvision's
-``BasicConv2d`` with BatchNorm eps 1e-3; ``transform_input=True`` by
-default (torchvision's pretrained setting); the "5x5" branch is a 3x3, as
-torchvision's weights are shaped; the max pools are the JAX package's
-"SAME" pools (-inf padding, the odd pixel at the bottom and right), which
-are torchvision's ``ceil_mode=True`` pools at 224; no auxiliary heads (a
-victim runs in eval mode, where torchvision skips them too). The names are
-torchvision's, so its ``state_dict`` loads once ``aux1.*`` and ``aux2.*``
-are dropped (``convert.load_torch_checkpoint`` does). ``dtype=`` is the
-compute dtype, as for the ResNets; ``transform_input`` runs in the input's
-dtype, before the first convolution casts it.
+Port of ``dl_attack_on_imagenet_tpu/models/googlenet.py``. ``stem_s2d`` runs
+the 7x7/s2 stem on 2x2 space-to-depth blocks, as the ResNets do
+(``resnet.s2d_stem``), on the same ``conv1`` kernel and BatchNorm (eps
+1e-3), with the stem's ReLU after its max pool. As there: every conv -> BN
+-> ReLU is torchvision's ``BasicConv2d`` with BatchNorm eps 1e-3;
+``transform_input=True`` by default (torchvision's pretrained setting); the
+"5x5" branch is a 3x3, as torchvision's weights are shaped; the max pools
+are the JAX package's "SAME" pools (-inf padding, the odd pixel at the
+bottom and right), which are torchvision's ``ceil_mode=True`` pools at 224;
+no auxiliary heads (a victim runs in eval mode, where torchvision skips
+them too). The names are torchvision's, so its ``state_dict`` loads once
+``aux1.*`` and ``aux2.*`` are dropped (``convert.load_torch_checkpoint``
+does). ``dtype=`` is the compute dtype, as for the ResNets;
+``transform_input`` runs in the input's dtype, before the first convolution
+casts it.
 """
 
 from __future__ import annotations
@@ -73,10 +73,10 @@ class GoogLeNet(nn.Module):
         self.num_classes = num_classes
         set_compute_dtype(self, dtype)
 
-    def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.transform is not None:
             x = self.transform(x)
-        xb = stem_blocks(x, self.stem_s2d, blocked_input)
+        xb = stem_blocks(x, self.stem_s2d)
         if xb is None:
             x = self.maxpool1(self.conv1(x))
         else:

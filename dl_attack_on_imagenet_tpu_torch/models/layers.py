@@ -60,13 +60,6 @@ def _channel_buffer(values) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32).reshape(1, -1, 1, 1)
 
 
-def _tiled(buf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A (1, 3, 1, 1) channel buffer tiled over ``x``'s channels: a
-    space-to-depth input has 12, in the order (ki, kj, c) with c fastest."""
-    reps = x.shape[1] // buf.shape[1]
-    return buf if reps == 1 else buf.repeat(1, reps, 1, 1)
-
-
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     """NHWC -> blocked NHWC: (N, H, W, C) -> (N, H/b, W/b, b*b*C), channel
     order (ki, kj, c) with c fastest: the S2D stems' compute layout, and
@@ -98,8 +91,7 @@ def space_to_depth_nchw(x: torch.Tensor) -> torch.Tensor:
 class Normalize(nn.Module):
     """Channel normalization ``(x - mean) / std`` of NCHW images, in the
     input's dtype (mean and std are cast to it), as the JAX wrapper
-    normalizes a bf16 input in bf16; tiled over a space-to-depth input's
-    channels."""
+    normalizes a bf16 input in bf16."""
 
     def __init__(self, mean: Sequence[float] = IMAGENET_MEAN,
                  std: Sequence[float] = IMAGENET_STD):
@@ -108,15 +100,14 @@ class Normalize(nn.Module):
         self.register_buffer("std", _channel_buffer(std), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - _tiled(self.mean, x).to(x.dtype)) / _tiled(self.std, x).to(x.dtype)
+        return (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
 
 
 class TransformInput(nn.Module):
     """torchvision's ``transform_input=True`` channel affine,
     ``x_c * (std_c / 0.5) + (mean_c - 0.5) / 0.5`` (the JAX package's
     ``torch_transform_input``). GoogLeNet and Inception-v3 apply it inside
-    their forward, on top of the victim's ``Normalize``; tiled over a
-    space-to-depth input's channels."""
+    their forward, on top of the victim's ``Normalize``."""
 
     def __init__(self):
         super().__init__()
@@ -125,7 +116,7 @@ class TransformInput(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * _tiled(self.scale, x) + _tiled(self.shift, x)
+        return x * self.scale + self.shift
 
 
 _FULL = (torch.float32, torch.float64)

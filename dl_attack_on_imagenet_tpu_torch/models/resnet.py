@@ -9,9 +9,7 @@ frozen in eval mode (eps 1e-5).
 ``S2DStem`` does (:func:`s2d_stem`): on the 2x2 space-to-depth blocks of the
 input, as a 4x4/s1 convolution over 4x the channels. The parameter stays the
 plain ``conv1`` kernel, so weights, checkpoints and the fold are those of
-the plain stem. ``forward(x, blocked_input=True)`` takes the blocked input
-itself (``VictimModel(blocked_input=True)``), so that an attack can keep its
-perturbation in that layout. An odd input size falls back to the plain stem.
+the plain stem. An odd input size falls back to the plain stem.
 The plain stem applies its ReLU before the max pool, as torchvision does;
 the S2D stem after it, as the JAX package does (the ReLU then runs at a
 quarter of the size). Both orders give the same values and, since the pool
@@ -80,12 +78,9 @@ def s2d_stem(xb: torch.Tensor, conv: nn.Conv2d, bn: nn.Module) -> torch.Tensor:
     return bn(y)
 
 
-def stem_blocks(x: torch.Tensor, stem_s2d: bool, blocked_input: bool):
+def stem_blocks(x: torch.Tensor, stem_s2d: bool):
     """The blocked view the S2D stem runs on, or None for the plain stem:
-    ``x`` itself when it is blocked already, its space-to-depth where
-    ``stem_s2d`` and the size is even."""
-    if blocked_input:
-        return x
+    ``x``'s space-to-depth where ``stem_s2d`` and the size is even."""
     if stem_s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
         return space_to_depth_nchw(x)
     return None
@@ -171,8 +166,8 @@ class ResNet(nn.Module):
         self.num_classes = num_classes
         set_compute_dtype(self, dtype)
 
-    def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
-        xb = stem_blocks(x, self.stem_s2d, blocked_input)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xb = stem_blocks(x, self.stem_s2d)
         if xb is None:
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         else:

@@ -114,28 +114,27 @@ def uap_run(victim, inp, mesh, root):
             "uap_saved": np.asarray(saved)}
 
 
-# The blocked run's settings; the test replays them.
-BLOCKED = dict(size=16, n=7, k=4, batch=4, steps=2, seed=0)
+# The S2D-stem run's settings; the test replays them.
+S2D = dict(size=16, n=7, k=4, batch=4, steps=2, seed=0)
 
 
-def blocked_inputs():
-    """(victim, images) of the blocked run: a seeded ResNet-18 with an S2D
+def s2d_inputs():
+    """(victim, images) of the S2D-stem run: a seeded ResNet-18 with an S2D
     stem and seeded images."""
-    b = BLOCKED
+    b = S2D
     victim = create_model("resnet18", input_size=b["size"], device="cpu", seed=3, stem_s2d=True)
     images = np.random.RandomState(6).uniform(0.0, 1.0, (b["n"], b["size"], b["size"], 3))
     return victim, images.astype(np.float32)
 
 
-def blocked_run(mesh):
-    """``learn_dictionary_distributed`` with ``blocked`` at its default."""
-    b = BLOCKED
-    victim, images = blocked_inputs()
+def s2d_run(mesh):
+    """``learn_dictionary_distributed`` on the S2D-stem victim."""
+    b = S2D
+    victim, images = s2d_inputs()
     cfg = core.AdilConfig(n_atoms=b["k"], batch_size=b["batch"], steps=b["steps"], loss="ce")
     d, v, history = adil_dp.learn_dictionary_distributed(
         victim, ArrayDataset(images, np.zeros(b["n"], np.int64)), cfg, mesh, seed=b["seed"])
-    return {"blocked_d": d.numpy(), "blocked_v": v.numpy(),
-            "blocked_loss": np.asarray(history["loss"]), "blocked_ran": np.asarray(history["blocked"])}
+    return {"s2d_d": d.numpy(), "s2d_v": v.numpy(), "s2d_loss": np.asarray(history["loss"])}
 
 
 # The sharded runs' checkpoint key; the test reads the directory under it.
@@ -294,7 +293,7 @@ def main(root: str, only: str = "") -> None:
     dist.barrier()
     out.update(adil_runs(victim, inp, mesh, f"{root}/adil"))
     out.update(uap_run(victim, inp, mesh, root))
-    out.update(blocked_run(mesh))
+    out.update(s2d_run(mesh))
     np.savez(f"{root}/rank{rank}.npz", **out)
     dist.destroy_process_group()
 

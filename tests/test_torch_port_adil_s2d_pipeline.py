@@ -1,17 +1,18 @@
-"""The port's ``ADIL(blocked=...)`` and ``ADIL(pipeline_epochs=...)``
-against the JAX package's and against the port's standard serial loop: the
-blocked ``gd`` run, its presentation artifact and its checkpoint kind,
-supervised serving through the blocked twin, and the pipelined epochs with
-their convergence stop and checkpoint resume. The victim is a ResNet-18
-with an S2D stem, its weights drawn in numpy for the JAX module's shapes
-(``test_torch_port_zoo.zoo_pair``); the stems themselves are held against
-the JAX package in ``test_torch_port_s2d``, and the data-parallel blocked
-learning against its replay in ``test_torch_port_parallel``.
+"""The port's ``ADIL`` on a victim with an S2D stem against the JAX
+package's, and ``ADIL(pipeline_epochs=...)`` against the port's standard
+serial loop: the ``gd`` run, its presentation artifact, its checkpoint and
+resume, supervised serving by DDrague and by AdamW codes, and the pipelined
+epochs with their convergence stop and checkpoint resume. The victim is a
+ResNet-18 with an S2D stem, its weights drawn in numpy for the JAX module's
+shapes (``test_torch_port_zoo.zoo_pair``); the port trains and serves it in
+the standard layout, the JAX package, by default, in the space-to-depth
+layout of its twin. The stems themselves are held against the JAX package in
+``test_torch_port_s2d``, and data-parallel learning on the same victim
+against its replay in ``test_torch_port_parallel``.
 
-Tolerances: a blocked ``gd`` run within 1e-4 of the JAX package's blocked
-run and of the port's standard run, in D and in the losses
-(``test_torch_port_adil_train``'s tolerance); served adversaries within
-1e-5 of the JAX package's and of the standard layout's
+Tolerances: a ``gd`` run within 1e-4 of the JAX package's, in D and in the
+losses (``test_torch_port_adil_train``'s
+tolerance); served adversaries within 1e-5 of the JAX package's
 (``test_torch_port_checkpoint``'s); a killed and resumed run, and the
 pipelined loop, exactly equal to the straight serial one.
 """
@@ -38,7 +39,7 @@ ATOL = 1e-4
 K = 4
 
 
-# -- ADIL in the blocked layout ---------------------------------------------
+# -- ADIL on an S2D-stem victim ----------------------------------------------
 
 N, SIZE = 4, 32
 
@@ -57,35 +58,27 @@ def _jax_start(jax_attack):
     return jax.tree_util.tree_map(np.asarray, state)
 
 
-def test_blocked_gd_matches_jax_and_the_standard_layout(s2d_pair, tmp_path):
+def test_s2d_gd_matches_jax(s2d_pair, tmp_path):
     # batch_size > n: one batch an epoch, so the packages' different
     # shuffles cannot change the trajectory; both start from the JAX state.
     jv, pv, x = s2d_pair
-    kw = dict(steps=3, n_atoms=K, batch_size=8, loss="logits", eps=3.0, pipeline_epochs=False)
-    want = JaxADIL(jv, cache=JaxArtifactCache(str(tmp_path / "jax")), blocked=True, **kw)
+    kw = dict(steps=3, n_atoms=K, batch_size=8, loss="logits", eps=3.0)
+    want = JaxADIL(jv, cache=JaxArtifactCache(str(tmp_path / "jax")), **kw)
     want.learn_dictionary((x, np.zeros(N)))
-    assert want.trained_blocked
     start = _jax_start(want)
-    runs = {}
-    for blocked in (True, False):
-        cache = ArtifactCache(str(tmp_path / f"port{blocked}"))
-        got = ADIL(pv, cache=cache, blocked=blocked, **kw)
-        got._init = lambda *_args: train_state_from_jax(start, device="cpu")
-        got.learn_dictionary((x, np.zeros(N)))
-        assert got.trained_blocked == blocked
-        saved = cache.load("ImageNet", model="resnet18")
-        assert saved["d"].shape == (K, SIZE, SIZE, 3) and saved["v"].shape == (N, K)
-        np.testing.assert_array_equal(saved["d"], got.dictionary.numpy())
-        runs[blocked] = got
-    for got in runs.values():
-        np.testing.assert_allclose(got.dictionary.numpy(), np.asarray(want.dictionary),
-                                   atol=ATOL, rtol=0)
-        np.testing.assert_allclose(got.history["loss"], want.history["loss"], atol=ATOL, rtol=0)
-    np.testing.assert_allclose(runs[True].dictionary.numpy(), runs[False].dictionary.numpy(),
+    cache = ArtifactCache(str(tmp_path / "port"))
+    got = ADIL(pv, cache=cache, pipeline_epochs=False, **kw)
+    got._init = lambda *_args: train_state_from_jax(start, device="cpu")
+    got.learn_dictionary((x, np.zeros(N)))
+    saved = cache.load("ImageNet", model="resnet18")
+    assert saved["d"].shape == (K, SIZE, SIZE, 3) and saved["v"].shape == (N, K)
+    np.testing.assert_array_equal(saved["d"], got.dictionary.numpy())
+    np.testing.assert_allclose(got.dictionary.numpy(), np.asarray(want.dictionary),
                                atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.history["loss"], want.history["loss"], atol=ATOL, rtol=0)
 
 
-def test_blocked_run_checkpoints_under_its_own_kind_and_resumes(s2d_pair, tmp_path):
+def test_s2d_run_checkpoints_under_the_standard_kind_and_resumes(s2d_pair, tmp_path):
     _, pv, x = s2d_pair
     kw = dict(steps=3, n_atoms=K, batch_size=2, loss="logits", checkpoint_every=1,
               model_name="s2d")
@@ -108,68 +101,53 @@ def test_blocked_run_checkpoints_under_its_own_kind_and_resumes(s2d_pair, tmp_pa
     probe._save_train_state = save_then_kill
     with pytest.raises(Killed):
         probe.learn_dictionary((x, np.zeros(N)))
-    assert cache.exists("ImageNet", model="s2d", kind="train_state_s2d_torch")
-    assert not cache.exists("ImageNet", model="s2d", kind="train_state_torch")
+    assert cache.exists("ImageNet", model="s2d", kind="train_state_torch")
     resumed = ADIL(pv, cache=cache, **kw)
     resumed.learn_dictionary((x, np.zeros(N)))
-    assert resumed.trained_blocked and resumed.history["loss"] == whole.history["loss"]
+    assert resumed.history["loss"] == whole.history["loss"]
     assert torch.equal(resumed.dictionary, whole.dictionary)
-    assert not cache.exists("ImageNet", model="s2d", kind="train_state_s2d_torch")
-    # The streamed and alter paths train unblocked.
+    assert not cache.exists("ImageNet", model="s2d", kind="train_state_torch")
+    # The streamed and alter paths save the same presentation artifact.
     for path in (dict(stream=True), dict(method="alter")):
         other = ADIL(pv, cache=ArtifactCache(str(tmp_path / str(path))),
                      **{**kw, "checkpoint_every": None, "steps": 1}, **path)
         other.learn_dictionary((x, np.zeros(N)))
-        assert not other.trained_blocked
         assert other.dictionary.shape == (K, SIZE, SIZE, 3)
 
 
-def _serve(attack, solver: str, x):
-    """``attack``'s supervised ``solver`` on x, and whether it went through
-    the blocked twin."""
-    calls = []
-    real = attack._blocked_supervised
-    attack._blocked_supervised = lambda *a: calls.append(real(*a)) or calls[-1]
-    args = (x,) if solver == "forward_supervised_adamw" else (x, np.zeros(len(x)))
-    return getattr(attack, solver)(*map(t, args)).numpy(), calls[-1] is not None
-
-
-def test_ddrague_through_the_twin_matches_jax(s2d_pair, tmp_path):
-    # Both packages serve an S2D victim through its twin. On this random
-    # ResNet-18 the packages' standard layouts are already up to 7e-4 apart
-    # after 5 AdamW steps (ROADMAP.md queue 3); the blocked layout must add
-    # nothing to that, and equal the port's standard layout within 1e-5.
-    jv, pv, x = s2d_pair
+def _served(tmp_path, jv, pv, x, solver: str, steps_code=None, **kw):
+    """The port's and the JAX package's adversaries of ``solver`` on x, from
+    one saved dictionary."""
     d = np.random.RandomState(4).uniform(-1.0, 1.0, (K, SIZE, SIZE, 3)).astype(np.float32)
     JaxArtifactCache(str(tmp_path)).save({"d": d}, "ImageNet", model="resnet18")
-    kw = dict(n_atoms=K, loss="logits", steps_inference=5, eps=0.1)
-    out = {}
-    for blocked in (True, False):
-        jattack = JaxADIL(jv, cache=JaxArtifactCache(str(tmp_path)), blocked=blocked, **kw)
-        out["jax", blocked] = np.asarray(jattack(jnp.asarray(x), jnp.zeros(N)))
-        attack = ADIL(pv, cache=ArtifactCache(str(tmp_path)), blocked=blocked, **kw)
-        out["port", blocked], through_twin = _serve(attack, "forward", x)
-        assert through_twin == blocked and out["port", blocked].shape == x.shape
-    np.testing.assert_allclose(out["port", True], out["port", False], atol=1e-5, rtol=0)
-    gap = float(np.abs(out["port", False] - out["jax", False]).max())
-    assert float(np.abs(out["port", True] - out["jax", True]).max()) <= gap + 1e-5
-    assert attack._blocked_dict(attack.dictionary) is attack._blocked_dict(attack.dictionary)
+    args = (x,) if solver == "forward_supervised_adamw" else (x, np.zeros(len(x)))
+    attack = ADIL(pv, cache=ArtifactCache(str(tmp_path)), **kw)
+    if steps_code is not None:
+        attack.cfg = dataclasses.replace(attack.cfg, steps_code=steps_code)
+    got = getattr(attack, solver)(*map(t, args)).numpy()
+    assert got.shape == x.shape
+    jattack = JaxADIL(jv, cache=JaxArtifactCache(str(tmp_path)), **kw)
+    if steps_code is not None:
+        jattack.cfg = dataclasses.replace(jattack.cfg, steps_code=steps_code)
+    return got, np.asarray(getattr(jattack, solver)(*map(jnp.asarray, args)))
 
 
-def test_adamw_codes_through_the_twin_match_the_standard_layout(s2d_pair, tmp_path):
+def test_s2d_ddrague_matches_jax(s2d_pair, tmp_path):
+    jv, pv, x = s2d_pair
+    got, want = _served(tmp_path, jv, pv, x, "forward", n_atoms=K, loss="logits",
+                        steps_inference=5, eps=0.1)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_s2d_adamw_codes_match_jax(s2d_pair, tmp_path):
     # Cut to 5 code steps: over the default 100 the l1-projected AdamW codes
-    # amplify the layouts' rounding differences past 1e-5.
-    _, pv, x = s2d_pair
-    d = np.random.RandomState(4).uniform(-1.0, 1.0, (K, SIZE, SIZE, 3)).astype(np.float32)
-    ArtifactCache(str(tmp_path)).save({"d": d}, "ImageNet", model="resnet18")
-    out = {}
-    for blocked in (True, False):
-        attack = ADIL(pv, cache=ArtifactCache(str(tmp_path)), blocked=blocked, n_atoms=K,
-                      loss="logits", eps=0.1)
-        attack.cfg = dataclasses.replace(attack.cfg, steps_code=5)
-        out[blocked], through_twin = _serve(attack, "forward_supervised_adamw", x)
-        assert through_twin == blocked
-    np.testing.assert_allclose(out[True], out[False], atol=1e-5, rtol=0)
+    # amplify the packages' rounding differences past 1e-5. The JAX class
+    # serves this victim through its twin, whose solver reads the cut from
+    # its config at the call.
+    jv, pv, x = s2d_pair
+    got, want = _served(tmp_path, jv, pv, x, "forward_supervised_adamw", steps_code=5,
+                        n_atoms=K, loss="logits", eps=0.1)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 # -- pipeline_epochs ----------------------------------------------------------

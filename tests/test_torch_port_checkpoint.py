@@ -138,21 +138,19 @@ def test_adil_trains_where_the_jax_class_would_train(tmp_path):
 
 
 def test_adil_raises_where_the_jax_class_would_train(tmp_path):
-    # blocked=True and pipeline_epochs=True, once refused, now train as the
-    # JAX class does and give the standard artifact: the tiny victim has no
-    # space-to-depth stem, so blocked=True falls back to the standard layout.
+    # pipeline_epochs=True, once refused, now trains as the JAX class does
+    # and gives the serial loop's artifact.
     _, _, pv = victim_pair("tiny")
     x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
     plain = ADIL(pv, n_atoms=8, steps=2, cache=ArtifactCache(str(tmp_path / "plain")),
-                 data_train=(x.numpy(), np.zeros(2)), blocked=False, pipeline_epochs=False)
-    for kwargs in (dict(blocked=True), dict(pipeline_epochs=True)):
-        cache = ArtifactCache(str(tmp_path / str(sorted(kwargs))))
-        trained = ADIL(pv, n_atoms=8, steps=2, cache=cache, data_train=(x.numpy(), np.zeros(2)),
-                       **kwargs)
-        assert cache.exists("ImageNet", model="tiny") and not trained.trained_blocked
-        assert trained.dictionary.shape == (8, 32, 32, 3)
-        assert torch.equal(trained.dictionary, plain.dictionary)
-        assert trained.history["loss"] == plain.history["loss"]
+                 data_train=(x.numpy(), np.zeros(2)), pipeline_epochs=False)
+    cache = ArtifactCache(str(tmp_path / "pipelined"))
+    trained = ADIL(pv, n_atoms=8, steps=2, cache=cache, data_train=(x.numpy(), np.zeros(2)),
+                   pipeline_epochs=True)
+    assert cache.exists("ImageNet", model="tiny")
+    assert trained.dictionary.shape == (8, 32, 32, 3)
+    assert torch.equal(trained.dictionary, plain.dictionary)
+    assert trained.history["loss"] == plain.history["loss"]
 
 
 def test_adil_trains_in_bf16_where_the_jax_class_would_train(tmp_path):

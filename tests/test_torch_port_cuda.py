@@ -16,9 +16,8 @@ ADILR's forwards and AdamW trainer on the card against the CPU; the
 torchattacks grid's PGD, DIFGSM, CW, APGD-T, FAB, Square and OnePixel on
 the card against the CPU with the same draws (1e-4, equal decisions), and
 OnePixel's painting of duplicate coordinates; the space-to-depth stems on
-the card against the CPU and the plain stem (1e-4), both kernels on the
-blocked column order, pipelined blocked learning against the serial loop,
-and ``cli.generate`` on the card against the CPU; Swin-B's device-timed
+the card against the CPU and the plain stem (1e-4), pipelined learning on
+an S2D-stem ResNet-18 against the serial loop, and ``cli.generate`` on the card against the CPU; Swin-B's device-timed
 spans against the device time of a whole pass, and its DDrague batch's
 blocking reads against ViT-B/16's; the Swin window-attention kernel
 against its plain twin at every Swin-B stage shape (output within 1e-5 of
@@ -792,9 +791,7 @@ def test_one_pixel_paints_duplicate_coordinates_in_order_on_the_card(cuda):
 def test_s2d_stem_on_the_card_matches_the_cpu_and_the_plain_stem(cuda, name):
     # The space-to-depth stem's 4x4 convolution over 12 channels in cuDNN:
     # logits and the CW input gradient within 1e-4 of the CPU's and of the
-    # plain stem's on the card, and its blocked twin's the same function.
-    from dl_attack_on_imagenet_tpu_torch.models import blocked_twin, space_to_depth
-
+    # plain stem's on the card.
     victim_cpu = create_model(name, input_size=32, device="cpu", seed=1, stem_s2d=True)
     state_dict = victim_cpu.net.state_dict()
     s2d = create_model(name, input_size=32, device=cuda, state_dict=state_dict, stem_s2d=True)
@@ -810,34 +807,11 @@ def test_s2d_stem_on_the_card_matches_the_cpu_and_the_plain_stem(cuda, name):
     for other in (out[0], out[2]):
         assert float((out[1][0] - other[0]).abs().max()) <= 1e-4
         assert float((out[1][1] - other[1]).abs().max()) <= 1e-4
-    with torch.no_grad():
-        twin_logits = blocked_twin(s2d)(space_to_depth(x.to(cuda))).cpu()
-    assert float((twin_logits - out[1][0]).abs().max()) <= 1e-5
 
 
-def test_kernels_on_the_blocked_layout_match_their_twins(cuda):
-    # Both kernels are elementwise in M after the contraction: on the
-    # space-to-depth column order they give the permuted result.
-    from dl_attack_on_imagenet_tpu_torch.models import space_to_depth
-
-    g = torch.Generator(device=cuda).manual_seed(2)
-    d = torch.rand((8, 32, 32, 3), generator=g, device=cuda) * 2 - 1
-    x = torch.rand((5, 32, 32, 3), generator=g, device=cuda)
-    v = torch.randn((5, 8), generator=g, device=cuda) * 0.01
-    d_b, x_b = space_to_depth(d), space_to_depth(x)
-    for eps in (8 / 255, float("inf")):
-        got = fused_perturb(v, d_b, x_b, eps)
-        want = fused_perturb_reference(v, d_b.reshape(8, -1), x_b.reshape(5, -1), eps)
-        assert float((got.reshape(5, -1) - want).abs().max()) <= 1e-5
-        assert float((got - space_to_depth(fused_perturb(v, d, x, eps))).abs().max()) <= 1e-6
-    p, grad, mu, nu = _adamw_inputs(cuda, d_b.numel())
-    args = [t.reshape(8, -1) for t in (p, grad, mu, nu)]
-    _check_adamw(args, 3, 1.0)
-
-
-def test_pipelined_blocked_learning_on_the_card_equals_the_serial(cuda, tmp_path):
-    # ADIL on a ResNet-18 with an S2D stem trains blocked; the pipelined
-    # epochs equal the serial ones under deterministic cuDNN.
+def test_pipelined_s2d_learning_on_the_card_equals_the_serial(cuda, tmp_path):
+    # ADIL on a ResNet-18 with an S2D stem, in the standard layout: the
+    # pipelined epochs equal the serial ones under deterministic cuDNN.
     from chip_smoke import _deterministic_cudnn
     from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
     from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
@@ -850,7 +824,6 @@ def test_pipelined_blocked_learning_on_the_card_equals_the_serial(cuda, tmp_path
             attack = ADIL(victim, n_atoms=8, batch_size=4, steps=3, loss="logits", data_train=data,
                           cache=ArtifactCache(str(tmp_path / str(pipeline))),
                           pipeline_epochs=pipeline)
-            assert attack.trained_blocked
             runs.append(attack)
     assert runs[0].history["loss"] == runs[1].history["loss"]
     assert float((runs[0].dictionary - runs[1].dictionary).abs().max()) <= 1e-5

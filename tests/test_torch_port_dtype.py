@@ -39,7 +39,7 @@ from dl_attack_on_imagenet_tpu.ops import attack_loss as jax_attack_loss
 from dl_attack_on_imagenet_tpu.utils import ArtifactCache as JaxArtifactCache
 from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
 from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
-from dl_attack_on_imagenet_tpu_torch.models import VictimModel, blocked_twin, create_model
+from dl_attack_on_imagenet_tpu_torch.models import VictimModel, create_model
 from dl_attack_on_imagenet_tpu_torch.models.convert import (state_dict_from_flax,
                                                             train_state_from_jax)
 from dl_attack_on_imagenet_tpu_torch.models.densenet import DenseNet
@@ -135,7 +135,6 @@ def test_bf16_s2d_folded_resnet_matches_jax_within_its_gap():
     assert not any(isinstance(m, torch.nn.BatchNorm2d) for m in port16.modules())
     r = bf16_ratios(jax32, jax16, port16, _images(32, n=N))
     assert_gap_rule(r, "resnet18 s2d folded")
-    assert blocked_twin(port16).dtype == torch.bfloat16
 
 
 # -- the attack core on a bf16 victim ----------------------------------------

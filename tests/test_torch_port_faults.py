@@ -2,10 +2,10 @@
 traced to its cause in float64.
 
 a. DDrague on a random ResNet-18 at 32x32 (the S2D victim of
-   ``test_torch_port_blocked``, served in the standard layout). After 5
-   steps the packages were up to 7.4e-4 apart, in one image. In float64 the
-   two agree to 1e-8 (2e-16 measured) at every step count, and the JAX
-   package's float32 run stays within 1e-6 of its float64 one; the port's
+   ``test_torch_port_adil_s2d_pipeline``, served in the standard layout).
+   After 5 steps the packages were up to 7.4e-4 apart, in one image. In
+   float64 the two agree to 1e-8 (2e-16 measured) at every step count, and
+   the JAX package's float32 run stays within 1e-6 of its float64 one; the port's
    float32 run parts from its own float64 run in that image alone. The
    cause is a ReLU whose input lies on the float32 noise floor: in the
    port's float32 forward one unit of ``layer3.0`` reads -3.8e-7 where

@@ -17,8 +17,8 @@ from torch.overrides import TorchFunctionMode
 from dl_attack_on_imagenet_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 from dl_attack_on_imagenet_tpu.models import create_model as jax_create_model
 from dl_attack_on_imagenet_tpu.ops import attack_loss as jax_attack_loss
-from dl_attack_on_imagenet_tpu_torch.models import (MODEL_REGISTRY, blocked_twin, create_model,
-                                                    space_to_depth)
+from dl_attack_on_imagenet_tpu_torch.models import (MODEL_REGISTRY, create_model,
+                                                    fast_victim_kwargs)
 from dl_attack_on_imagenet_tpu_torch.models.tiny import same_pads
 from dl_attack_on_imagenet_tpu_torch.ops import attack_loss
 
@@ -116,29 +116,28 @@ def test_resnet34_builds_from_jax_variables():
 
 
 # One victim of each family of the registry, at a small size, in each of its
-# forms: plain, the S2D stem, the blocked twin (the families with an S2D
-# stem) and folded (those with conv -> BatchNorm).
+# forms: plain, the S2D stem (the families with one), folded (those with
+# conv -> BatchNorm) and fast, the S2D stem folded, as ``--fast-victim``
+# builds it (the families with both).
 _FAMILIES = [("resnet18", 32), ("resnet50", 32), ("densenet121", 32), ("googlenet", 32),
              ("inception_v3", 75), ("mobilenet_v2", 32), ("vgg11", 32), ("vit_tiny", 32),
              ("tiny", None)]
 _S2D = ("resnet18", "resnet50", "densenet121", "googlenet")
 _FOLD = ("resnet18", "resnet50", "googlenet", "inception_v3", "mobilenet_v2")
 _FORMS = ([(name, size, "plain") for name, size in _FAMILIES]
-          + [(name, size, form) for name, size in _FAMILIES if name in _S2D
-             for form in ("stem_s2d", "blocked")]
-          + [(name, size, "folded") for name, size in _FAMILIES if name in _FOLD])
+          + [(name, size, "stem_s2d") for name, size in _FAMILIES if name in _S2D]
+          + [(name, size, "folded") for name, size in _FAMILIES if name in _FOLD]
+          + [(name, size, "fast") for name, size in _FAMILIES if name in _S2D and name in _FOLD])
+_FORM_KWARGS = {"plain": lambda name: {}, "stem_s2d": lambda name: {"stem_s2d": True},
+                "folded": lambda name: {"fold_bn": True}, "fast": fast_victim_kwargs}
 
 
 def _victim(name, size, form, dtype=torch.float32):
-    """The victim of ``form`` and the NHWC input it takes (blocked for the
-    blocked twin)."""
-    kw = {"stem_s2d": True} if form in ("stem_s2d", "blocked") else {}
+    """The victim of ``form`` and the NHWC input it takes."""
     victim = create_model(name, input_size=size, device="cpu", dtype=dtype,
-                          fold_bn=form == "folded", **kw)
+                          **_FORM_KWARGS[form](name))
     x = torch.rand((2, victim.input_size, victim.input_size, 3),
                    generator=torch.Generator().manual_seed(5))
-    if form == "blocked":
-        return blocked_twin(victim), space_to_depth(x)
     return victim, x
 
 
@@ -181,7 +180,7 @@ def test_every_convolution_takes_the_victims_layout(name, size, form, dtype):
     # Every convolution runs once: through its module, or (the S2D stem's
     # conv1) through F.conv2d on its blocked kernel.
     assert len(convs.calls) == len(modules)
-    assert len(hooked) == len(modules) - (form in ("stem_s2d", "blocked"))
+    assert len(hooked) == len(modules) - (form in ("stem_s2d", "fast"))
     for inp, weight in hooked + convs.calls:
         assert inp.is_contiguous(memory_format=layout)
         assert weight.is_contiguous(memory_format=layout)
