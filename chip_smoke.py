@@ -14,7 +14,10 @@ phase, and exits non-zero if any phase fails:
    runs after a ResNet-50 pass on the main path), with its rate, its share
    of the bound and its launch (grid, resident blocks, registers, spills),
    its time at N=128 (two row chunks a tile), and ``torch.addmm`` beside it
-   for information;
+   for information; ``resnet_epilogue`` at every post-convolution site of
+   ResNet-50 at b64, summed over a pass (forward, and forward with the
+   input gradient) against the benchmark reader's bounds, beside the
+   BatchNorm, add and ReLU modules it replaces;
 4. checks the served path and three training steps against the plain path
    on the CPU at a small size, and every victim family's logits and CW input
    gradient on the card against the CPU at a small input size (DenseNet-121
@@ -27,7 +30,8 @@ phase, and exits non-zero if any phase fails:
    where its device time goes and each kernel's time a launch in place;
 6. trains ADiL at the same configuration: one warm-up step, then 10 steps
    chained on one batch of 64 (the step ``bench.py`` times), timed and then
-   traced; then each ``learn_dictionary`` path through the ``ADIL``
+   traced, the ResNet epilogue kernel launched 49 times each way a step;
+   then each ``learn_dictionary`` path through the ``ADIL``
    constructor on 128 images: ``gd`` resident for 2 epochs with a
    checkpoint after each, ``gd`` streamed from the host for 1 epoch, and
    ``alter`` for 1 round;
@@ -147,11 +151,11 @@ phase, and exits non-zero if any phase fails:
    the CPU at a small size by the gap rule of the CPU tests (the card's bf16
    logits and CW input gradient no further from the CPU's bf16 ones than those
    are from the CPU's fp32 ones, in relative l2);
-21. runs the ``gd`` step on ResNet-50 at b64 under each ``ADIL_MAXPOOL`` x
-   ``ADIL_RELU`` backward variant (``models.layers.POOL_MODE`` and
-   ``RELU_MODE``): ms a step, peak memory, and the input gradient's largest
-   gap from the default under deterministic cuDNN (0 but under ``slices``
-   and ``vjp``);
+21. runs the ``gd`` step on ResNet-50 at b64 under each ``ADIL_MAXPOOL``
+   backward variant (``models.layers.POOL_MODE``; ``ADIL_RELU`` does not
+   reach an fp32 ResNet on the card, whose ReLUs are the epilogue kernel's):
+   ms a step, peak memory, and the input gradient's largest gap from the
+   default under deterministic cuDNN (0 but under ``slices`` and ``vjp``);
 22. prints the whole run's time and one ``{"kernels": [...]}`` line, each
    kernel's ADILR shape under ``"adilr"`` and ``fused_perturb`` at N=128
    under ``"n128"``, then the result line ``{"ok": true, "device": {...}}``
@@ -510,6 +514,149 @@ def check_swin_window_attention(dev, n: int = 64) -> dict:
             "bound_share": total["bound_ms"] / total["ms"], "stages": rows}
 
 
+def _resnet50_sites(dev) -> dict:
+    """Each post-convolution site of a ResNet-50 pass at 224², as (channels,
+    map side, residual: None, "identity" or "affine") -> how many a pass
+    has, read off one forward's calls of the epilogue kernel."""
+    from collections import Counter
+
+    from dl_attack_on_imagenet_tpu_torch.models import create_model, resnet
+
+    victim = create_model("resnet50", device=dev, seed=0)
+    sites, kernel = Counter(), resnet.resnet_epilogue
+
+    def spy(y, scale, shift, residual=None, res_scale=None, res_shift=None):
+        kind = None if residual is None else "identity" if res_scale is None else "affine"
+        sites[(y.shape[1], y.shape[2], kind)] += 1
+        return kernel(y, scale, shift, residual, res_scale, res_shift)
+
+    resnet.resnet_epilogue = spy
+    try:
+        with torch.no_grad():
+            victim(torch.rand((1, 224, 224, 3), device=dev))
+    finally:
+        resnet.resnet_epilogue = kernel
+    return dict(sites)
+
+
+def check_resnet_epilogue(dev, n: int = 64) -> dict:
+    """The ResNet post-convolution kernel against its twin (the frozen
+    BatchNorm modules, the add and the ReLU) at every site of ResNet-50 at
+    batch ``n``: output within 1e-6 of its largest value, the gradients of
+    the convolution's output and of the residual within 1e-5 in relative l2
+    off the elements whose ReLU input lies within rounding of 0 (under 1e-6
+    of the largest, at most 1e-5 of them; there the two roundings may keep
+    or drop the gradient).
+    Times the kernel's forward and its backward at each site with the host
+    ahead, beside the twin's, and sums them over a pass against the
+    benchmark reader's bounds (``resnet_epilogue_roofline``: 8 or 12 bytes
+    an element forward, 12 backward). The row's launches are those of
+    ``serve``'s and ``train``'s timed runs."""
+    from dl_attack_on_imagenet_tpu_torch.models import resnet
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue
+    from h100bench.metrics.resnet_epilogue_roofline import pass_seconds
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "h100bench", "configs",
+                           "resnet50-fp32.json")) as f:
+        config = json.load(f)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, max_err = [], 0.0
+
+    def frozen_bn(c):
+        bn = torch.nn.BatchNorm2d(c).to(dev).eval().requires_grad_(False)
+        with torch.no_grad():
+            bn.running_mean.copy_(torch.randn(c, generator=g, device=dev) * 0.3)
+            bn.running_var.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+            bn.weight.copy_(torch.rand(c, generator=g, device=dev) * 0.6 + 0.4)
+            bn.bias.copy_(torch.randn(c, generator=g, device=dev) * 0.3)
+        conv = torch.nn.Conv2d(c, c, 1, bias=False).to(dev)
+        return bn, resnet._affine(conv, bn)
+
+    for (channels, side, kind), count in sorted(_resnet50_sites(dev).items(), key=str):
+        shape = (n, channels, side, side)
+        x0 = torch.randn(shape, generator=g, device=dev)
+        r0 = torch.randn(shape, generator=g, device=dev) if kind else None
+        grad_out = torch.randn(shape, generator=g, device=dev)
+        (bn, affine), (bn_r, affine_r) = frozen_bn(channels), frozen_bn(channels)
+        extra = () if kind is None else (r0,) if kind == "identity" else (r0,) + affine_r
+        x = x0.clone().requires_grad_(True)
+        r = r0.clone().requires_grad_(True) if kind else None
+        leaves = [x] + ([r] if kind else [])
+
+        def kernel_graph():
+            res = () if kind is None else (r.clone(),) if kind == "identity" else (
+                r.clone(),) + affine_r
+            return resnet_epilogue(x.clone(), *affine, *res)
+
+        def twin_input(t, rr):
+            y = bn(t)
+            return y + (rr if kind == "identity" else bn_r(rr)) if kind else y
+
+        def twin(t, rr):
+            return torch.relu(twin_input(t, rr))
+
+        out = kernel_graph()
+        want = twin(x, r)
+        grads = torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+        want_grads = torch.autograd.grad(want, leaves, grad_out, retain_graph=True)
+        with torch.no_grad():
+            pre = twin_input(x0, r0)
+            near = pre.abs() <= 1e-6 * pre.abs().max()
+            out_err = float((out - want).abs().max() / want.abs().max())
+            grad_err = max(float(torch.linalg.vector_norm((a - b).masked_fill(near, 0))
+                                 / torch.linalg.vector_norm(b))
+                           for a, b in zip(grads, want_grads))
+        n_near = int(near.sum())
+        if not (out_err <= 1e-6 and grad_err <= 1e-5 and n_near <= 1e-5 * near.numel()):
+            raise AssertionError(f"resnet_epilogue disagrees with its twin at {channels} x "
+                                 f"{side}² ({kind}): output {out_err}, gradients {grad_err} "
+                                 f"off {n_near} ReLU inputs within rounding of 0")
+        del pre, near
+        max_err = max(max_err, out_err)
+        buf = x0.clone()
+
+        def forward():
+            with torch.no_grad():
+                resnet_epilogue(buf, *affine, *extra)
+
+        def plain_forward():
+            with torch.no_grad():
+                twin(x0, r0)
+
+        row = {"channels": channels, "side": side, "residual": kind, "count": count,
+               "fwd_ms": _time_device_ms(forward, 20)[0],
+               "bwd_ms": _time_device_ms(
+                   lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True), 20)[0],
+               "plain_fwd_ms": _time_device_ms(plain_forward, 20)[0],
+               "plain_bwd_ms": _time_device_ms(
+                   lambda: torch.autograd.grad(want, leaves, grad_out, retain_graph=True), 20)[0],
+               "out_err": out_err, "grad_err": grad_err, "near_zero": n_near}
+        rows.append(row)
+        print(f"resnet_epilogue at b{n}, {channels} x {side}² ({kind or 'no residual'}; {count} a "
+              f"pass): forward {row['fwd_ms']:.4f} ms, backward {row['bwd_ms']:.4f} ms; twin "
+              f"{row['plain_fwd_ms']:.4f} / {row['plain_bwd_ms']:.4f} ms; output err "
+              f"{out_err:.2e}, gradient err {grad_err:.2e} ({n_near} ReLU inputs within "
+              "rounding of 0 left out)")
+        del x0, r0, grad_out, x, r, out, want, grads, want_grads, buf
+    total = {k: sum(r[k] * r["count"] for r in rows)
+             for k in ("fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms")}
+    bound_fwd = 1e3 * pass_seconds(config, n, False)
+    bound = 1e3 * pass_seconds(config, n, True)
+    ms, plain_ms = total["fwd_ms"] + total["bwd_ms"], total["plain_fwd_ms"] + total["plain_bwd_ms"]
+    print(f"resnet_epilogue, a ResNet-50 pass at b{n} ({sum(r['count'] for r in rows)} sites): "
+          f"forward {total['fwd_ms']:.3f} ms (bound {bound_fwd:.3f}, "
+          f"{bound_fwd / total['fwd_ms']:.1%}), backward {total['bwd_ms']:.3f} ms (bound "
+          f"{bound - bound_fwd:.3f}, {(bound - bound_fwd) / total['bwd_ms']:.1%}), both "
+          f"{ms:.3f} ms (bound {bound:.3f}, {bound / ms:.1%}); twin {total['plain_fwd_ms']:.3f} / "
+          f"{total['plain_bwd_ms']:.3f} ms; no single PyTorch call computes the function")
+    return {"name": "resnet_epilogue", "route": "cuda",
+            "source": "dl_attack_on_imagenet_tpu_torch/csrc/resnet_epilogue.cu",
+            "replaces": None, "launches": 0, "backward_launches": 0, "max_abs_err": max_err,
+            "ms": ms, "fwd_ms": total["fwd_ms"], "plain_ms": plain_ms,
+            "plain_fwd_ms": total["plain_fwd_ms"], "bound_ms": bound, "bound_fwd_ms": bound_fwd,
+            "bound_by": "bytes", "library_ms": None, "bound_share": bound / ms, "sites": rows}
+
+
 def check_small_against_cpu(dev) -> None:
     """The served path on the card against the plain path on the CPU, on the
     tiny victim at a small size (atol 1e-4 after 5 AdamW steps: cuDNN and
@@ -643,10 +790,11 @@ def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
 def _zero_counts() -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
     from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
-    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue, swin_window_attention
 
     fused_perturb.launches = fused_adamw_project.launches = 0
     swin_window_attention.launches = swin_window_attention.backward_launches = 0
+    resnet_epilogue.launches = resnet_epilogue.backward_launches = 0
 
 
 def _serve_mode(run, images, victim, label: str, budget: bool) -> int:
@@ -705,14 +853,60 @@ def _served_inputs(dev, name: str, size: int, cache, n: int = 64, k: int = 100):
     return victim, torch.rand((n, size, size, 3), generator=g, device=dev)
 
 
-def serve(dev) -> int:
-    """ADiL serving on ResNet-50 through the ADIL entry points; returns the
-    fused_perturb launches of the three timed runs."""
+def _counted_mode(run, images, victim, label: str, budget: bool, kernel, per_pass: int,
+                  grad_passes: bool) -> int:
+    """``_serve_mode`` with the victim's passes counted by a forward hook on
+    its network and ``kernel``'s forward and backward launches read around
+    each of the warm-up, timed and traced runs: each run must launch it
+    ``per_pass`` times a pass, and as often backward a pass that records an
+    input gradient, and (where ``grad_passes``) record one. Returns the
+    timed run's ``fused_perturb`` launches and its ``kernel`` forward and
+    backward launches."""
+    passes, runs = [], []  # runs: (passes, input-gradient passes, counts before, counts after)
+    counts = lambda: (kernel.launches, kernel.backward_launches)
+
+    def record(module, args, out):
+        passes.append(bool(torch.is_grad_enabled() and args[0].requires_grad))
+
+    def counted(x):
+        passes.clear()
+        before = counts()
+        adv = run(x)
+        runs.append((len(passes), sum(passes), before, counts()))
+        return adv
+
+    hook = victim.net.register_forward_hook(record)
+    try:
+        perturb = _serve_mode(counted, images, victim, label, budget)
+    finally:
+        hook.remove()
+    print(f"{label}: (passes, input-gradient passes, {kernel.__name__} forward and backward "
+          f"launch counts before and after) of the warm-up, timed and traced runs {runs}")
+    if len(runs) != 3 or runs[1][2] != (0, 0):
+        raise AssertionError(f"{label}: runs {runs}; the timed run's counts start at 0")
+    for count, grads, before, after in runs:
+        forwards, backwards = after[0] - before[0], after[1] - before[1]
+        if (not count or (grad_passes and not grads)
+                or (forwards, backwards) != (per_pass * count, per_pass * grads)):
+            raise AssertionError(f"{label}: {forwards} / {backwards} {kernel.__name__} launches "
+                                 f"in {count} passes, {grads} with an input gradient; the path "
+                                 f"makes {per_pass} a pass each way")
+    return (perturb,) + runs[1][3]
+
+
+def serve(dev) -> tuple:
+    """ADiL serving on ResNet-50 through the ADIL entry points, each mode
+    launching the ResNet epilogue kernel at the 49 sites of every pass, and
+    backward at each pass that records an input gradient (``_counted_mode``;
+    none in the unsupervised mode's sampling). Returns the fused_perturb
+    launches and the epilogue's forward and backward launches of the three
+    timed runs."""
     from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue
     from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
 
     k = 100
-    total_launches = 0
+    total = (0, 0, 0)
     with tempfile.TemporaryDirectory() as root:
         cache = ArtifactCache(root)
         victim, images = _served_inputs(dev, "resnet50", 224, cache, k=k)
@@ -721,8 +915,10 @@ def serve(dev) -> int:
                           steps_inference=30, trials=10, cache=cache,
                           attack="unsupervised" if mode == "unsupervised" else "supervised")
             run = attack.forward_supervised_adamw if mode == "supervised_adamw" else attack
-            total_launches += _serve_mode(run, images, victim, mode, mode != "supervised")
-    return total_launches
+            counts = _counted_mode(run, images, victim, mode, mode != "supervised",
+                                   resnet_epilogue, 49, mode != "unsupervised")
+            total = tuple(a + b for a, b in zip(total, counts))
+    return total
 
 
 def check_fused_perturb_inception(dev, size: int = 299) -> float:
@@ -788,50 +984,24 @@ def serve_swin(dev, n: int = 64, steps: int = 30, blocks: int = 24) -> tuple:
     ``steps`` steps), warmed up, timed and traced as in ``serve``, the
     victim's passes counted by a forward hook on its network. Every run must
     launch the window-attention kernel once a block forward in each pass,
-    and once a block backward in each pass that records an input gradient.
-    Returns (fused_perturb launches, window-attention forward launches,
-    backward launches) of the timed run, every launch count set to 0 just
-    before it. (The keyword arguments shrink the run for a rehearsal.)"""
+    and once a block backward in each pass that records an input gradient
+    (``_counted_mode``). Returns (fused_perturb launches, window-attention
+    forward launches, backward launches) of the timed run, every launch
+    count set to 0 just before it. (The keyword arguments shrink the run for
+    a rehearsal.)"""
     from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
     from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
     from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
-
-    passes, runs = [], []  # runs: (passes, input-gradient passes, counts before, counts after)
-    counts = lambda: (swin_window_attention.launches, swin_window_attention.backward_launches)
-
-    def record(module, args, out):
-        passes.append(bool(torch.is_grad_enabled() and args[0].requires_grad))
 
     with tempfile.TemporaryDirectory() as root:
         cache = ArtifactCache(root)
         victim, images = _served_inputs(dev, "swin_b", 224, cache, n=n)
         attack = ADIL(victim, eps=EPS, n_atoms=100, loss="logits", steps_inference=steps,
                       cache=cache, attack="supervised")
-
-        def run(x):
-            passes.clear()
-            before = counts()
-            adv = attack(x)
-            runs.append((len(passes), sum(passes), before, counts()))
-            return adv
-
-        hook = victim.net.register_forward_hook(record)
-        try:
-            perturb = _serve_mode(run, images, victim, "swin_b 224x224 supervised", False)
-        finally:
-            hook.remove()
+        counts = _counted_mode(attack, images, victim, "swin_b 224x224 supervised", False,
+                               swin_window_attention, blocks, True)
         del victim, images, attack
-    print(f"swin_b: (passes, input-gradient passes, window-attention forward and backward "
-          f"launch counts before and after) of the warm-up, timed and traced runs {runs}")
-    if len(runs) != 3 or runs[1][2] != (0, 0):
-        raise AssertionError(f"swin_b: runs {runs}; the timed run's counts start at 0")
-    for count, grads, before, after in runs:
-        forwards, backwards = after[0] - before[0], after[1] - before[1]
-        if not grads or (forwards, backwards) != (blocks * count, blocks * grads):
-            raise AssertionError(f"swin_b: {forwards} / {backwards} window-attention launches in "
-                                 f"{count} passes, {grads} with an input gradient; the path "
-                                 f"makes {blocks} a pass each way")
-    return (perturb,) + runs[1][3]
+    return counts
 
 
 def _check_trained(name: str, d, v, eps: float) -> None:
@@ -845,14 +1015,17 @@ def _check_trained(name: str, d, v, eps: float) -> None:
         raise AssertionError(f"{name}: D or v left its constraint set")
 
 
-def train(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100) -> int:
+def train(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100) -> tuple:
     """ADiL training on ResNet-50, the step bench.py times: a warm-up step,
     then 10 steps chained on one batch, timed and then traced. Returns the
-    fused_adamw_project launches of the timed run. (The keyword arguments
-    shrink the run for a rehearsal on the CPU.)"""
+    fused_adamw_project launches of the timed run, and its ResNet epilogue
+    kernel's forward and backward launches (49 each a ResNet-50 step on the
+    card). (The keyword arguments shrink the run for a rehearsal on the
+    CPU.)"""
     from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
     from dl_attack_on_imagenet_tpu_torch.models import create_model
     from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue
 
     n_steps = 10
     victim = create_model(model, device=dev, seed=0)
@@ -874,18 +1047,23 @@ def train(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_adamw_project.launches
+    epilogue = (resnet_epilogue.launches, resnet_epilogue.backward_launches)
     print(f"train gd step on {model} at b{n} K={k} {size}x{size}: {wall / n_steps * 1e3:.2f} ms/step, "
           f"{n_steps / wall:.2f} it/s over {n_steps} chained steps, fused_adamw_project "
-          f"launches {launches}; loss {losses[0]:.4f} -> {losses[-1]:.4f}, fooling "
+          f"launches {launches}, resnet_epilogue {epilogue[0]} forward and {epilogue[1]} "
+          f"backward; loss {losses[0]:.4f} -> {losses[-1]:.4f}, fooling "
           f"{int(foolings[-1])}/{n}")
     if launches != 2 * n_steps:
         raise AssertionError(f"train: {launches} launches in {n_steps} steps, not 2 a step")
+    if dev.type == "cuda" and model == "resnet50" and epilogue != (49 * n_steps, 49 * n_steps):
+        raise AssertionError(f"train: resnet_epilogue launched {epilogue} in {n_steps} steps, "
+                             "not 49 each way a step")
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError("train: non-finite loss")
     _check_trained("train", state.d, state.v, EPS)
     print_device_breakdown("train step", lambda: step(state, images, labels, idx, mask),
                            wall / n_steps)
-    return launches
+    return launches, epilogue
 
 
 def learn_entry_points(dev, model: str = "resnet50", size: int = 224, n: int = 128,
@@ -2710,7 +2888,7 @@ S2D_GRAD_TOL = 2e-2
 
 
 def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3,
-                    layout=None, tol: float = S2D_GRAD_TOL, n_timed: int = 64) -> dict:
+                    tol: float = S2D_GRAD_TOL, n_timed: int = 64) -> dict:
     """The S2D stem on the card, batch 2. The stem alone (conv and BatchNorm
     on the space-to-depth blocks, ``models.resnet.s2d_stem``) against the
     plain ``conv1``/``bn1``: its output and its input gradient under a random
@@ -2726,8 +2904,7 @@ def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3
     some ReLU inputs and max-pool windows of a random ResNet-50 lie within
     fp32 rounding of a tie, and each summation order routes their gradient its
     own way, so each fp32 build sits up to 1e-2 from the exact gradient, by
-    seed, device and layout. ``seed`` draws the images; ``layout`` forces the
-    fp32 nets into that memory format (None: the victim's own). Returns
+    seed, device and layout. ``seed`` draws the images. Returns
     {build: (logits error, gradient rel l2)}."""
     import copy
 
@@ -2781,8 +2958,6 @@ def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3
     scale = max(1.0, float(logits64.abs().max()))
 
     def run(victim, d):
-        if layout is not None:
-            victim.net.to(memory_format=layout)
         xt = x.to(d).requires_grad_(True)
         logits = victim(xt)
         (grad,) = torch.autograd.grad(attack_loss(logits, labels.to(d), loss="logits"), xt)
@@ -2798,8 +2973,7 @@ def check_s2d_stems(dev, model: str = "resnet50", size: int = 224, seed: int = 3
         rows[f"plain {where}"] = run(plain if d == cpu else on_dev, d)
         rows[f"stem_s2d {where}"] = run(s2d, d)
         rows[f"--fast-victim {where}"] = run(fast, d)
-    fmt = "own" if layout is None else str(layout).removeprefix("torch.")
-    print(f"s2d stem {model}, images seed {seed}, fp32 nets in the {fmt} layout, against the "
+    print(f"s2d stem {model}, images seed {seed}, against the "
           f"plain victim in float64 (|logits| up to {scale:.3e}, |gradient| up to "
           f"{float(grad64.abs().max()):.3e}; tol logits 1e-4 x {scale:.3g}, gradient rel l2 "
           f"{tol}): " + "; ".join(f"{name} logits {e[0]:.3e} gradient {e[1]:.3e}"
@@ -3099,20 +3273,21 @@ def bf16_victim(dev, root: str, model: str = "resnet50", size: int = 224, n: int
     return perturb, adamw
 
 
-ACTIVATION_MODES = tuple((pool, relu) for pool in ("sas", "vjp", "slices")
-                         for relu in ("plain", "bool", "packed"))
+POOL_MODES = ("sas", "vjp", "slices")
 
 
 def activation_modes(dev, model: str = "resnet50", size: int = 224, n: int = 64, k: int = 100,
                      n_steps: int = 5) -> int:
-    """The ``gd`` step on ``model`` at b``n`` under each ``ADIL_MAXPOOL`` x
-    ``ADIL_RELU`` mode (set through ``models.layers.POOL_MODE`` and
-    ``RELU_MODE``, which the environment names set at import): ms a step
-    over ``n_steps`` chained steps after a warm-up, the peak memory of those
-    steps, and the CW input gradient's largest gap from the default modes'
-    under deterministic cuDNN (0 expected but under ``slices``, which
-    splits a tie, and ``vjp``, which adds overlapping windows' gradients in
-    its own order). Returns the fused_adamw_project launches."""
+    """The ``gd`` step on ``model`` at b``n`` under each ``ADIL_MAXPOOL``
+    mode (set through ``models.layers.POOL_MODE``, which the environment
+    name sets at import): ms a step over ``n_steps`` chained steps after a
+    warm-up, the peak memory of those steps, and the CW input gradient's
+    largest gap from the default mode's under deterministic cuDNN (0
+    expected but under ``slices``, which splits a tie, and ``vjp``, which
+    adds overlapping windows' gradients in its own order). ``ADIL_RELU``
+    is not varied: an fp32 ResNet's ReLUs on the card are the epilogue
+    kernel's, which it does not reach. Returns the fused_adamw_project
+    launches."""
     from dl_attack_on_imagenet_tpu_torch.attacks import adil_core as core
     from dl_attack_on_imagenet_tpu_torch.models import create_model, layers
     from dl_attack_on_imagenet_tpu_torch.ops import attack_loss
@@ -3123,11 +3298,11 @@ def activation_modes(dev, model: str = "resnet50", size: int = 224, n: int = 64,
     images = torch.rand((n, size, size, 3), generator=g, device=dev)
     start = core.init_state(g, (size, size, 3), n, cfg)
     labels = core.predict_labels(victim, images)
-    base, total, gaps = None, 0, {}
-    modes = (layers.POOL_MODE, layers.RELU_MODE)
+    base, total = None, 0
+    mode = layers.POOL_MODE
     try:
-        for pool, relu in ACTIVATION_MODES:
-            layers.POOL_MODE, layers.RELU_MODE = pool, relu
+        for pool in POOL_MODES:
+            layers.POOL_MODE = pool
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             ms, launches, _ = _timed_steps(victim, cfg, _state_copy(start), images, labels,
@@ -3139,19 +3314,13 @@ def activation_modes(dev, model: str = "resnet50", size: int = 224, n: int = 64,
                 (grad,) = torch.autograd.grad(attack_loss(victim(x), labels, loss="logits"), x)
             base = grad if base is None else base
             gap = float((grad - base).abs().max())
-            print(f"activation modes, ADIL_MAXPOOL={pool} ADIL_RELU={relu}: gd step on {model} "
-                  f"at b{n} {ms:.2f} ms/step over {n_steps} chained steps, peak memory "
+            print(f"activation modes, ADIL_MAXPOOL={pool}: gd step on {model} at b{n} "
+                  f"{ms:.2f} ms/step over {n_steps} chained steps, peak memory "
                   f"{peak / 2**30:.3f} GiB, fused_adamw_project launches {launches}, input "
                   f"gradient's largest gap from the default {gap:.3e} (|gradient| up to "
                   f"{float(base.abs().max()):.3e})")
-            if pool == "sas" and gap != 0.0:
-                raise AssertionError(f"ADIL_RELU={relu} changed the input gradient: {gap}")
-            if relu != "plain" and gap != gaps[pool]:
-                raise AssertionError(f"ADIL_RELU={relu} under ADIL_MAXPOOL={pool} changed the "
-                                     f"input gradient: {gap} against {gaps[pool]}")
-            gaps.setdefault(pool, gap)
     finally:
-        layers.POOL_MODE, layers.RELU_MODE = modes
+        layers.POOL_MODE = mode
     return total
 
 
@@ -3189,13 +3358,16 @@ def main() -> None:
 
     kernels = [timed("fused_perturb check", check_fused_perturb, dev),
                timed("fused_adamw_project check", check_fused_adamw_project, dev),
-               timed("swin_window_attention check", check_swin_window_attention, dev)]
+               timed("swin_window_attention check", check_swin_window_attention, dev),
+               timed("resnet_epilogue check", check_resnet_epilogue, dev)]
     timed("small-size checks", lambda: (check_small_against_cpu(dev),
                                         check_train_small_against_cpu(dev),
                                         check_families_against_cpu(dev)))
-    kernels[0]["launches"] = timed("serve", serve, dev)
-    kernels[1]["launches"] = (timed("train", train, dev)
-                              + timed("learn_dictionary", learn_entry_points, dev))
+    kernels[0]["launches"], *served = timed("serve", serve, dev)
+    kernels[1]["launches"], trained = timed("train", train, dev)
+    kernels[3]["launches"], kernels[3]["backward_launches"] = (
+        a + b for a, b in zip(served, trained))
+    kernels[1]["launches"] += timed("learn_dictionary", learn_entry_points, dev)
     zoo_launches, zoo_err = timed("zoo", serve_zoo, dev)
     kernels[0]["launches"] += zoo_launches
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], zoo_err)

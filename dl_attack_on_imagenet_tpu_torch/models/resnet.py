@@ -20,6 +20,16 @@ maximum passes none, the same input gradients.
 bf16 over fp32 parameters, and each BatchNorm in fp32 on the bf16
 activation, rounding its result to bf16, as the JAX package's
 ``dtype=jnp.bfloat16`` does (``layers``); the logits are bf16.
+
+**After each convolution** (:func:`conv_bn_relu`): on the card, an fp32
+victim runs the frozen BatchNorm, the residual add where a block ends and
+the ReLU as one kernel, ``ops.kernels.resnet_epilogue``, forward and input
+gradient, with the downsample branch's BatchNorm in it too; a folded victim
+takes it with its convolutions' biases, and ``ADIL_RELU`` does not reach
+it. There it has no fallback: a map it cannot take (one not in contiguous
+NCHW) raises. Every other call (the CPU, a bf16 victim, a BatchNorm in
+training mode, the S2D stem) runs the modules one after another, as the JAX
+package does: that composition is the kernel's twin.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels import resnet_epilogue
 from .layers import (Conv2d, Linear, MaxPool, ReLU, global_avg_pool, relu, set_compute_dtype,
                      space_to_depth_nchw)
 
@@ -90,6 +101,81 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
     return Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
 
 
+def _takes_kernel(x: torch.Tensor, conv: Conv2d, bn: nn.Module) -> bool:
+    """Whether ``conv`` -> ``bn`` on ``x`` runs the epilogue kernel: an fp32
+    CUDA input, the convolution in fp32, and the BatchNorm frozen on its
+    running statistics (or folded away)."""
+    if isinstance(bn, nn.BatchNorm2d):
+        if bn.training or bn.running_mean is None:
+            return False
+    elif not isinstance(bn, nn.Identity):
+        return False
+    return x.is_cuda and x.dtype == torch.float32 and conv.compute_dtype is None
+
+
+def _affine(conv: Conv2d, bn: nn.Module):
+    """The (C,) scale and shift that ``bn`` applies to ``conv``'s output,
+    ``conv``'s bias folded into the shift: ``gamma / sqrt(var + eps)`` and
+    ``beta - mean * scale`` (1 and 0 for a folded-away BatchNorm), computed
+    in float64 and rounded once to the weights' dtype. Kept on the
+    convolution, keyed by the tensors' identities and versions (a load or a
+    fold makes new ones). Raises where autograd records and one of them
+    requires a gradient: the kernel gives them none."""
+    tensors = [conv.bias]
+    if isinstance(bn, nn.BatchNorm2d):
+        tensors += [bn.running_mean, bn.running_var, bn.weight, bn.bias]
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError("resnet_epilogue: the kernel gives the BatchNorm and the convolution's "
+                         "bias no gradient; freeze them (create_model does) or run without "
+                         "autograd")
+    key = tuple(None if t is None else (t.data_ptr(), t._version, t.device) for t in tensors)
+    key += (getattr(bn, "eps", None), conv.weight.dtype)
+    cached = conv.__dict__.get("_epilogue_affine")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.no_grad():
+        scale = torch.ones(conv.out_channels, dtype=torch.float64, device=conv.weight.device)
+        shift = torch.zeros_like(scale)
+        if isinstance(bn, nn.BatchNorm2d):
+            scale = torch.rsqrt(bn.running_var.double() + bn.eps)
+            if bn.weight is not None:
+                scale = scale * bn.weight.double()
+            shift = -bn.running_mean.double() * scale
+            if bn.bias is not None:
+                shift = shift + bn.bias.double()
+        if conv.bias is not None:
+            shift = shift + scale * conv.bias.double()
+        affine = (scale.to(conv.weight.dtype), shift.to(conv.weight.dtype))
+    conv.__dict__["_epilogue_affine"] = (key, affine)
+    return affine
+
+
+def _conv_without_bias(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    return conv._conv_forward(x, conv.weight, None)
+
+
+def conv_bn_relu(x: torch.Tensor, conv: Conv2d, bn: nn.Module, relu_: nn.Module,
+                 shortcut: torch.Tensor = None, downsample: nn.Sequential = None) -> torch.Tensor:
+    """``relu_(bn(conv(x)) [+ r])``: r is ``downsample(shortcut)`` where
+    both are given (a Sequential of a convolution and its BatchNorm),
+    ``shortcut`` where only it is, else nothing. On the card an fp32 call
+    runs it as the epilogue kernel after the convolutions (see the module
+    docstring); otherwise the modules, one after another."""
+    pairs = [(x, conv, bn)] + ([(shortcut, downsample[0], downsample[1])]
+                               if downsample is not None else [])
+    if not all(_takes_kernel(*p) for p in pairs):
+        y = bn(conv(x))
+        if shortcut is not None:
+            y = y + (shortcut if downsample is None else downsample(shortcut))
+        return relu_(y)
+    scale, shift = _affine(conv, bn)
+    y = _conv_without_bias(conv, x)
+    if downsample is None:
+        return resnet_epilogue(y, scale, shift, shortcut)
+    r = _conv_without_bias(downsample[0], shortcut)
+    return resnet_epilogue(y, scale, shift, r, *_affine(downsample[0], downsample[1]))
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -106,10 +192,8 @@ class BasicBlock(nn.Module):
                                             nn.BatchNorm2d(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return self.relu(y + residual)
+        y = conv_bn_relu(x, self.conv1, self.bn1, self.relu)
+        return conv_bn_relu(y, self.conv2, self.bn2, self.relu, x, self.downsample)
 
 
 class Bottleneck(nn.Module):
@@ -131,11 +215,9 @@ class Bottleneck(nn.Module):
                                             nn.BatchNorm2d(out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.relu(self.bn1(self.conv1(x)))
-        y = self.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return self.relu(y + residual)
+        y = conv_bn_relu(x, self.conv1, self.bn1, self.relu)
+        y = conv_bn_relu(y, self.conv2, self.bn2, self.relu)
+        return conv_bn_relu(y, self.conv3, self.bn3, self.relu, x, self.downsample)
 
 
 Block = Type[Union[BasicBlock, Bottleneck]]
@@ -169,7 +251,7 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xb = stem_blocks(x, self.stem_s2d)
         if xb is None:
-            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+            x = self.maxpool(conv_bn_relu(x, self.conv1, self.bn1, self.relu))
         else:
             x = relu(self.maxpool(s2d_stem(xb, self.conv1, self.bn1)))
         for i in range(self.num_stages):

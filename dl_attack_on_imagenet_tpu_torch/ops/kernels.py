@@ -3,12 +3,15 @@
 ``fused_perturb`` and ``fused_adamw_project`` replace the Pallas TPU kernels
 of the same names in ``dl_attack_on_imagenet_tpu/ops/pallas_kernels.py``;
 ``swin_window_attention`` (Swin's windowed attention, forward and input
-gradient) replaces none: the JAX package has no Swin. Their CUDA sources
-are ``csrc/<name>.cu``. On a CUDA tensor a wrapper launches its kernel or
-raises; only tensors on the CPU take the plain twin. Swin's wrapper takes
-CUDA tensors only: its twin is the model's own path
-(``models.swin.window_attention_reference``), and the model picks one or
-the other by device.
+gradient) replaces none: the JAX package has no Swin; nor does
+``resnet_epilogue`` (a ResNet's frozen BatchNorm, residual add and ReLU
+after a convolution, forward and input gradient), which XLA fuses on the
+TPU. Their CUDA sources are ``csrc/<name>.cu``. On a CUDA tensor a wrapper
+launches its kernel or raises; only tensors on the CPU take the plain twin.
+The Swin and ResNet wrappers take CUDA tensors only: each twin is the
+model's own path (``models.swin.window_attention_reference``, and the
+ResNet's ``bn`` -> ``+`` -> ``relu`` modules), and the model picks one or
+the other by what its call observes.
 """
 
 from __future__ import annotations
@@ -319,3 +322,145 @@ def swin_window_attention(qkv: torch.Tensor, table: torch.Tensor, window: int, s
 
 swin_window_attention.launches = 0
 swin_window_attention.backward_launches = 0
+
+
+# The residual modes of the ResNet epilogue kernel (csrc/resnet_epilogue.cu).
+_NO_RESIDUAL, _IDENTITY, _AFFINE = 0, 1, 2
+_EPILOGUE_FNS = {}
+
+
+def _bind_epilogue():
+    """The kernel's forward and backward entry points, bound once a library
+    (a ResNet pass calls them 49 times each way)."""
+    lib = native.load("resnet_epilogue")
+    fns = _EPILOGUE_FNS.get(lib)
+    if fns is None:
+        fwd, bwd = lib.resnet_epilogue_forward_f32, lib.resnet_epilogue_backward_f32
+        fwd.argtypes = bwd.argtypes = ([ctypes.c_void_p] * 6
+                                       + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                                       + [ctypes.c_void_p])
+        fwd.restype = bwd.restype = ctypes.c_int
+        fns = _EPILOGUE_FNS[lib] = (fwd, bwd)
+    return fns
+
+
+def _pointer(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch_epilogue(backward: bool, tensors, x: torch.Tensor, mode: int) -> None:
+    """One launch of the forward (``tensors`` = x, r, a, b, a', b') or the
+    backward (g, y, a, a', dx, dr) over ``x``'s map, on ``x``'s device and
+    current stream; None entries are null pointers. Raises off CUDA."""
+    if not x.is_cuda:
+        raise ValueError("resnet_epilogue: the kernel runs on CUDA tensors only (the CPU takes "
+                         "the model's BatchNorm, add and ReLU)")
+    fn = _bind_epilogue()[1 if backward else 0]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*(_pointer(t) for t in tensors), x.numel(), x.shape[2] * x.shape[3],
+                 x.shape[1], mode, stream)
+    if err:
+        raise RuntimeError(f"resnet_epilogue: kernel launch failed with CUDA error {err}")
+
+
+def _epilogue_forward(x, scale, shift, residual, res_scale, res_shift) -> int:
+    """y over x in place; returns the residual mode."""
+    mode = _NO_RESIDUAL if residual is None else _IDENTITY if res_scale is None else _AFFINE
+    if x.numel():
+        _launch_epilogue(False, (x, residual, scale, shift, res_scale, res_shift), x, mode)
+        resnet_epilogue.launches += 1
+    return mode
+
+
+class _ResNetEpilogue(torch.autograd.Function):
+    """The kernel's forward, written over the convolution's output, and its
+    backward for the gradients of that output and of the residual; it
+    saves the output alone (and the per-channel scales)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, residual, res_scale, res_shift):
+        ctx.mode = _epilogue_forward(x, scale, shift, residual, res_scale, res_shift)
+        ctx.mark_dirty(x)
+        ctx.save_for_backward(x, scale, res_scale)
+        return x
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        y, scale, res_scale = ctx.saved_tensors
+        grad = grad.contiguous()
+        if grad.data_ptr() % 16:
+            grad = grad.clone()
+        mode = ctx.mode if ctx.needs_input_grad[3] else _NO_RESIDUAL
+        dx = torch.empty_like(y)
+        dr = torch.empty_like(y) if mode != _NO_RESIDUAL else None
+        if y.numel():
+            _launch_epilogue(True, (grad, y, scale, res_scale, dx, dr), y, mode)
+            resnet_epilogue.backward_launches += 1
+        return dx, None, None, dr, None, None
+
+
+def resnet_epilogue(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                    residual: torch.Tensor = None, res_scale: torch.Tensor = None,
+                    res_shift: torch.Tensor = None) -> torch.Tensor:
+    """What follows a ResNet convolution, in one pass: its frozen BatchNorm
+    (a per-channel affine), the residual add where a block ends, and the
+    ReLU.
+
+    Args:
+      x: (N, C, H, W) output of the convolution, without its bias.
+      scale, shift: (C,) the BatchNorm's ``gamma / sqrt(var + eps)`` and
+        ``beta - mean * scale``, the convolution's bias folded in (a folded
+        victim's are 1 and the bias).
+      residual: None; or the block's input, added as it is; or, with
+        ``res_scale`` and ``res_shift``, the downsample convolution's raw
+        output, added through its own BatchNorm's affine.
+
+    Returns ``relu(scale x + shift [+ residual'])``, written over ``x`` (the
+    convolution's output, which nothing else reads). Under autograd the
+    backward gives x's gradient (``scale`` times the output's gradient where
+    the output is positive) and the residual's, from the saved output alone;
+    the scales and shifts get none (``models.resnet`` refuses a BatchNorm
+    that needs one). Every tensor must be contiguous float32
+    on one CUDA device, 16-byte aligned, the map under 2^31 elements. Each
+    forward launch adds one to ``resnet_epilogue.launches``, each backward to
+    ``resnet_epilogue.backward_launches``.
+    """
+    if x.dim() != 4:
+        raise ValueError(f"resnet_epilogue: x must be (N, C, H, W), got {tuple(x.shape)}")
+    channels = x.shape[1]
+    affines = [scale, shift] + ([res_scale, res_shift] if res_scale is not None else [])
+    if (res_scale is None) != (res_shift is None) or (res_scale is not None and residual is None):
+        raise ValueError("resnet_epilogue: res_scale and res_shift go together, with a residual")
+    if any(tuple(t.shape) != (channels,) for t in affines):
+        raise ValueError(f"resnet_epilogue: scales and shifts must be ({channels},), got "
+                         f"{[tuple(t.shape) for t in affines]}")
+    maps = [x] + ([residual] if residual is not None else [])
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError(f"resnet_epilogue: the residual {tuple(residual.shape)} does not match "
+                         f"x {tuple(x.shape)}")
+    tensors = maps + affines
+    if not all(t.device == x.device for t in tensors):
+        raise ValueError("resnet_epilogue: every tensor must be on x's device")
+    if not all(t.dtype == torch.float32 for t in tensors):
+        raise TypeError("resnet_epilogue: the kernel takes float32 only")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError("resnet_epilogue: the kernel takes contiguous (NCHW) tensors, 16-byte "
+                         "aligned")
+    if x.numel() >= 1 << 31:
+        raise ValueError(f"resnet_epilogue: the kernel takes maps under 2^31 elements, got "
+                         f"{x.numel()}")
+    if residual is not None and residual.untyped_storage().data_ptr() == (
+            x.untyped_storage().data_ptr()):
+        raise ValueError("resnet_epilogue: the residual may not share x's memory, which the "
+                         "kernel overwrites")
+    if torch.is_grad_enabled() and (x.requires_grad or (residual is not None
+                                                        and residual.requires_grad)):
+        return _ResNetEpilogue.apply(x, scale, shift, residual, res_scale, res_shift)
+    _epilogue_forward(x, scale, shift, residual, res_scale, res_shift)
+    return x
+
+
+resnet_epilogue.launches = 0
+resnet_epilogue.backward_launches = 0

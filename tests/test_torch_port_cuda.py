@@ -344,7 +344,7 @@ def _device_kernels(fn) -> list:
     return names
 
 
-def test_fp32_victim_runs_no_layout_transposes_on_the_card(cuda):
+def test_fp32_victim_runs_no_layout_transposes_on_the_card(cuda, monkeypatch):
     # An fp32 ResNet-50 in contiguous NCHW hands cuDNN the layout of its
     # fp32 kernels: a forward and input gradient at 224x224 launch none of
     # the nhwcToNchw / nchwToNhwc transposes that cuDNN wraps around each
@@ -352,7 +352,11 @@ def test_fp32_victim_runs_no_layout_transposes_on_the_card(cuda):
     # the layout failed to reach). The same weights forced into
     # channels_last do launch them, and their logits agree within 1e-5 of
     # the largest; a bf16 victim's convolutions take channels_last tensors.
+    # The epilogue kernel takes no channels_last map (such a pass raises),
+    # so the channels_last pass runs the BatchNorm, add and ReLU modules.
     from torch.overrides import TorchFunctionMode
+
+    from dl_attack_on_imagenet_tpu_torch.models import resnet
 
     victim = create_model("resnet50", device=cuda, seed=0)
     x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
@@ -370,6 +374,7 @@ def test_fp32_victim_runs_no_layout_transposes_on_the_card(cuda):
     pass_()  # cuDNN's first uses outside the trace
     assert transposes(_device_kernels(pass_)) == []
     victim.net.to(memory_format=torch.channels_last)
+    monkeypatch.setattr(resnet, "_takes_kernel", lambda *args: False)
     pass_()
     assert transposes(_device_kernels(pass_)), "channels_last fp32 ran no transposes"
     nchw, cl = out[torch.contiguous_format], out[torch.channels_last]
@@ -1006,3 +1011,216 @@ def test_swin_window_attention_takes_an_empty_batch_on_the_card(cuda):
     (grad,) = torch.autograd.grad(out.sum(), qkv)
     assert out.shape == (0, 14, 14, 512) and grad.shape == qkv.shape
     assert counts() == before
+
+
+# The distinct post-convolution sites of ResNet-50 and ResNet-18 at 224²:
+# (channels, map side, residual) with residual None, "identity" (the block's
+# input) or "affine" (the downsample convolution through its BatchNorm).
+_RESNET50_SITES = [(64, 112, None), (64, 56, None), (256, 56, "affine"), (256, 56, "identity"),
+                   (128, 56, None), (128, 28, None), (512, 28, "affine"),
+                   (512, 28, "identity"), (256, 28, None), (256, 14, None),
+                   (1024, 14, "affine"), (1024, 14, "identity"), (512, 14, None),
+                   (512, 7, None), (2048, 7, "affine"), (2048, 7, "identity")]
+_RESNET18_SITES = [(64, 112, None), (64, 56, None), (64, 56, "identity"), (128, 28, None),
+                   (128, 28, "affine"), (128, 28, "identity"), (256, 14, None),
+                   (256, 14, "affine"), (256, 14, "identity"), (512, 7, None),
+                   (512, 7, "affine"), (512, 7, "identity")]
+
+
+def _frozen_bn(channels, gen, dev):
+    bn = torch.nn.BatchNorm2d(channels).to(dev).eval().requires_grad_(False)
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(channels, generator=gen, device=dev) * 0.3)
+        bn.running_var.copy_(torch.rand(channels, generator=gen, device=dev) + 0.5)
+        bn.weight.copy_(torch.rand(channels, generator=gen, device=dev) * 0.6 + 0.4)
+        bn.bias.copy_(torch.randn(channels, generator=gen, device=dev) * 0.3)
+    return bn
+
+
+def _affine_of(bn):
+    from dl_attack_on_imagenet_tpu_torch.models import resnet
+
+    conv = torch.nn.Conv2d(bn.num_features, bn.num_features, 1, bias=False).to(bn.weight.device)
+    return resnet._affine(conv, bn)
+
+
+@pytest.mark.parametrize("channels,side,residual",
+                         sorted(set(_RESNET50_SITES + _RESNET18_SITES), key=str))
+def test_resnet_epilogue_matches_its_twin_on_the_card(cuda, channels, side, residual):
+    # At b64, the kernel against the twin, the BatchNorm modules, the add
+    # and the ReLU on the card: output within 1e-6 of its largest value, the
+    # gradients of the convolution's output and of the residual within 1e-5
+    # in relative l2 off the elements whose ReLU input lies within rounding
+    # of 0 (|t| under 1e-6 of the largest; at most 1e-5 of them), where the
+    # two roundings may keep or drop the gradient: one such element of
+    # unit gradient alone moves a map's relative l2 by ~5e-4.
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue
+
+    g = torch.Generator(device=cuda).manual_seed(channels + side)
+    shape = (64, channels, side, side)
+    x0 = torch.randn(shape, generator=g, device=cuda)
+    r0 = torch.randn(shape, generator=g, device=cuda) if residual else None
+    grad_out = torch.randn(shape, generator=g, device=cuda)
+    bn, bn_r = _frozen_bn(channels, g, cuda), _frozen_bn(channels, g, cuda)
+    before = (resnet_epilogue.launches, resnet_epilogue.backward_launches)
+    x, r = x0.clone().requires_grad_(True), r0.clone().requires_grad_(True) if residual else None
+    leaves = [x] + ([r] if residual else [])
+
+    def extra(rr):
+        return () if residual is None else (rr,) if residual == "identity" else (
+            (rr,) + _affine_of(bn_r))
+
+    def twin_input(t, rr):
+        y = bn(t)
+        return y + (rr if residual == "identity" else bn_r(rr)) if residual else y
+
+    results = []
+    for fn in (lambda: resnet_epilogue(x.clone(), *_affine_of(bn), *extra(
+                   r.clone() if residual else None)),
+               lambda: torch.relu(twin_input(x, r))):
+        out = fn()
+        results.append((out.detach(), torch.autograd.grad(out, leaves, grad_out)))
+    torch.cuda.synchronize()
+    assert (resnet_epilogue.launches, resnet_epilogue.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    (out, grads), (want, want_grads) = results
+    with torch.no_grad():
+        pre = twin_input(x0, r0)
+    near = pre.abs() <= 1e-6 * pre.abs().max()
+    out_err = float((out - want).abs().max() / want.abs().max())
+    grad_errs = [float(torch.linalg.vector_norm((a - b).masked_fill(near, 0))
+                       / torch.linalg.vector_norm(b)) for a, b in zip(grads, want_grads)]
+    assert out_err <= 1e-6 and max(grad_errs) <= 1e-5, (out_err, grad_errs)
+    assert int(near.sum()) <= 1e-5 * near.numel()
+    with torch.no_grad():
+        y = x0.clone()
+        assert resnet_epilogue(y, *_affine_of(bn), *extra(r0)) is y  # in place
+    assert torch.equal(y, out)
+
+
+@pytest.mark.parametrize("fold_bn", [False, True], ids=["unfolded", "folded"])
+@pytest.mark.parametrize("name,sites", [("resnet50", _RESNET50_SITES),
+                                        ("resnet18", _RESNET18_SITES)])
+def test_every_resnet_site_runs_the_epilogue_kernel_on_the_card(cuda, monkeypatch, name, sites,
+                                                               fold_bn):
+    # A forward and input gradient launches one forward and one backward at
+    # each post-convolution site (49 on ResNet-50, 17 on ResNet-18), a
+    # forward without autograd one forward a site; the sites visited are the
+    # list above. Logits within 1e-5 of the largest of the modules' path on
+    # the same card, the input gradient within 2e-2 in relative l2, the limit
+    # ``chip_smoke.check_s2d_stems`` holds every fp32 ResNet-50 build to at
+    # 224² (ReLU inputs within rounding of 0 flip, and their gradients
+    # spread through the layers before them).
+    from dl_attack_on_imagenet_tpu_torch.models import resnet
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue
+
+    victim = create_model(name, device=cuda, seed=0, fold_bn=fold_bn)
+    x = torch.rand((2, 224, 224, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    seen = set()
+    spied = resnet.resnet_epilogue
+
+    def spy(y, scale, shift, residual=None, res_scale=None, res_shift=None):
+        kind = None if residual is None else "identity" if res_scale is None else "affine"
+        seen.add((y.shape[1], y.shape[2], kind))
+        return spied(y, scale, shift, residual, res_scale, res_shift)
+
+    monkeypatch.setattr(resnet, "resnet_epilogue", spy)
+    counts = lambda: (resnet_epilogue.launches, resnet_epilogue.backward_launches)
+    n = sum(1 for m in victim.net.modules() if isinstance(m, torch.nn.Conv2d)) - (
+        4 if name == "resnet50" else 3)  # the downsample convolutions share a site
+    before = counts()
+    xt = x.clone().requires_grad_(True)
+    logits = victim(xt)
+    (grad,) = torch.autograd.grad(logits.square().sum(), xt)
+    logits = logits.detach()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + n, before[1] + n) and n == {"resnet50": 49,
+                                                               "resnet18": 17}[name]
+    assert seen == set(sites)
+    with torch.no_grad():
+        victim(x)
+    assert counts() == (before[0] + 2 * n, before[1] + n)
+    monkeypatch.setattr(resnet, "_takes_kernel", lambda *args: False)  # the modules' path
+    xt = x.clone().requires_grad_(True)
+    want = victim(xt)
+    (want_grad,) = torch.autograd.grad(want.square().sum(), xt)
+    want = want.detach()
+    assert counts() == (before[0] + 2 * n, before[1] + n)
+    assert float((logits - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert float(torch.linalg.vector_norm(grad - want_grad)
+                 / torch.linalg.vector_norm(want_grad)) <= 2e-2
+
+
+def test_an_fp32_resnet_pass_runs_no_batchnorm_or_clamp_kernel_on_the_card(cuda):
+    # Under the profiler, a forward and input gradient of an fp32 ResNet-50
+    # runs the epilogue kernels and none of cuDNN's BatchNorm, ATen's
+    # batch_norm or clamp_min kernels; a bf16 victim launches no epilogue.
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue
+
+    victim = create_model("resnet50", device=cuda, seed=0)
+    x = torch.rand((4, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def pass_():
+        xt = x.clone().requires_grad_(True)
+        torch.autograd.grad(victim(xt).square().sum(), xt)
+
+    pass_()
+    names = _device_kernels(pass_)
+    assert sum("resnet_epilogue_forward" in n for n in names) == 49
+    assert sum("resnet_epilogue_backward" in n for n in names) == 49
+    banned = [n for n in names if "bn_fw_inf" in n or "batch_norm" in n or "clamp_min" in n]
+    assert banned == []
+    bf16 = create_model("resnet50", device=cuda, seed=0, dtype=torch.bfloat16)
+    counts = lambda: (resnet_epilogue.launches, resnet_epilogue.backward_launches)
+    before = counts()
+    xt = x.clone().requires_grad_(True)
+    torch.autograd.grad(bf16(xt).float().square().sum(), xt)
+    torch.cuda.synchronize()
+    assert counts() == before
+
+
+@pytest.mark.parametrize("case", ["relu_bool", "relu_packed", "channels_last"])
+def test_an_fp32_resnet_on_the_card_has_no_fallback(cuda, monkeypatch, case):
+    # ADIL_RELU bool and packed do not reach an fp32 ResNet on the card:
+    # every site still takes the kernel. A channels_last fp32 victim, whose
+    # maps the kernel cannot take, raises rather than run the modules.
+    from dl_attack_on_imagenet_tpu_torch.models import layers
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue
+
+    victim = create_model("resnet50", input_size=64, device=cuda, seed=0)
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(5)).to(cuda)
+    counts = lambda: (resnet_epilogue.launches, resnet_epilogue.backward_launches)
+    before = counts()
+    xt = x.clone().requires_grad_(True)
+    if case == "channels_last":
+        victim.net.to(memory_format=torch.channels_last)
+        with pytest.raises(ValueError, match="contiguous"):
+            victim(xt)
+        assert counts() == before
+        return
+    monkeypatch.setattr(layers, "RELU_MODE", case[5:])
+    torch.autograd.grad(victim(xt).square().sum(), xt)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 49, before[1] + 49)
+
+
+def test_resnet_epilogue_takes_an_empty_batch_and_refuses_what_it_cannot_take(cuda):
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue
+
+    scale, shift = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    counts = lambda: (resnet_epilogue.launches, resnet_epilogue.backward_launches)
+    before = counts()
+    x = torch.zeros((0, 8, 7, 7), device=cuda, requires_grad=True)
+    out = resnet_epilogue(x * 1.0, scale, shift)
+    (grad,) = torch.autograd.grad(out.sum(), x)
+    assert out.shape == x.shape and grad.shape == x.shape and counts() == before
+    y = torch.randn((2, 8, 7, 7), device=cuda)
+    with pytest.raises(ValueError):
+        resnet_epilogue(y.to(memory_format=torch.channels_last)[:, :, :, :6], scale, shift)
+    with pytest.raises(ValueError):
+        resnet_epilogue(torch.empty(2 * 8 * 49 + 1, device=cuda)[1:].view(2, 8, 7, 7),
+                        scale, shift)
+    with pytest.raises(TypeError):
+        resnet_epilogue(y.double(), scale, shift)
+    with pytest.raises(ValueError):
+        resnet_epilogue(y, scale, shift, y)
