@@ -3,12 +3,13 @@
 Port of ``dl_attack_on_imagenet_tpu/models/__init__.py``, with the same
 registry: the ResNets, DenseNet, GoogLeNet, Inception-v3, MobileNetV2, VGG,
 ViT and the tiny test CNN; the port adds Swin-B (``swin_b``, fp32 only) and
-its tiny test twin (``swin_tiny``), which the JAX package lacks. A name
-picks a classifier, the ImageNet normalization is prepended, and the result
-is a frozen function from [0, 1] NHWC images to logits: eval mode, no
-weight gradients, and every convolution in the memory layout that its
-dtype's kernels take (:func:`victim_memory_format`): contiguous NCHW for
-fp32, ``channels_last`` for bf16. The ResNets, DenseNet and GoogLeNet take
+its tiny test twin (``swin_tiny``), and ConvNeXt-B (``convnext_b``, fp32
+only) and its small test twin (``convnext_mini``), which the JAX package
+lacks. A name picks a classifier, the ImageNet normalization is prepended,
+and the result is a frozen function from [0, 1] NHWC images to logits:
+eval mode, no weight gradients, and every convolution in the memory layout
+that its dtype's kernels take (:func:`victim_memory_format`): contiguous
+NCHW for fp32, ``channels_last`` for bf16. The ResNets, DenseNet and GoogLeNet take
 ``stem_s2d`` (their stem on 2x2 space-to-depth blocks of the input).
 ``dtype=torch.bfloat16`` builds a bf16 victim: fp32 parameters, bf16
 compute layer by layer as the JAX package's ``dtype=jnp.bfloat16`` victim
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from .convnext import convnext_b, convnext_mini
 from .densenet import densenet121, densenet169
 from .fold import fold_batchnorms_, foldable
 from .googlenet import googlenet
@@ -38,8 +40,8 @@ from .vgg import vgg11, vgg16, vgg19
 from .vit import SelfAttention, VisionTransformer, vit_b16, vit_tiny
 
 # name -> (constructor, default input size), the JAX package's registry and
-# the port's Swin; the short aliases are the reference CLI's names ('resnet'
-# means resnet18).
+# the port's Swin and ConvNeXt; the short aliases are the reference CLI's
+# names ('resnet' means resnet18).
 MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet": (resnet18, 224),
     "resnet18": (resnet18, 224),
@@ -63,6 +65,8 @@ MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "tiny": (tiny_cnn, 32),
     "swin_b": (swin_b, 224),
     "swin_tiny": (swin_tiny, 64),
+    "convnext_b": (convnext_b, 224),
+    "convnext_mini": (convnext_mini, 64),
 }
 
 
@@ -99,7 +103,11 @@ def victim_memory_format(dtype: torch.dtype) -> torch.memory_format:
     NCHW for fp32, whose cuDNN kernels are NCHW ones (given channels_last
     tensors, cuDNN transposes each convolution's input to NCHW and its
     output back, forward and input gradient alike), and ``channels_last``
-    for bf16, whose tensor-core kernels are native NHWC."""
+    for bf16, whose tensor-core kernels are native NHWC. ConvNeXt, which
+    runs each block's LayerNorm and Linears on NHWC rows, hands every fp32
+    convolution after them a contiguous NCHW map again: its residual add
+    writes the stream's NCHW layout, and its channel LayerNorms copy back
+    to NCHW."""
     if resolve_dtype(dtype) == torch.bfloat16:
         return torch.channels_last
     return torch.contiguous_format
@@ -265,7 +273,7 @@ def create_model(
 
 
 __all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size",
-           "create_model", "densenet121", "densenet169", "depth_to_space", "fast_victim_kwargs",
-           "googlenet", "inception_v3", "mobilenet_v2", "resnet18", "resnet34", "resnet50",
-           "space_to_depth", "swin_b", "swin_tiny", "tiny_cnn", "vgg11", "vgg16", "vgg19",
-           "victim_memory_format", "vit_b16", "vit_tiny"]
+           "convnext_b", "convnext_mini", "create_model", "densenet121", "densenet169",
+           "depth_to_space", "fast_victim_kwargs", "googlenet", "inception_v3", "mobilenet_v2",
+           "resnet18", "resnet34", "resnet50", "space_to_depth", "swin_b", "swin_tiny",
+           "tiny_cnn", "vgg11", "vgg16", "vgg19", "victim_memory_format", "vit_b16", "vit_tiny"]

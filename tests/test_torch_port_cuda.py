@@ -23,7 +23,9 @@ blocking reads against ViT-B/16's; the Swin window-attention kernel
 against its plain twin at every Swin-B stage shape (output within 1e-5 of
 its largest value, each of dq, dk, dv within 1e-4 in relative l2), and its
 launches: 24 forwards and 24 backwards a Swin-B pass, ``swin_tiny``'s
-blocks too, none for an empty batch. Every test here needs a GPU and skips
+blocks too, none for an empty batch; ConvNeXt-B against the plain
+reference on the card, its device-timed spans against a whole pass, and
+its convolutions in contiguous NCHW. Every test here needs a GPU and skips
 without one.
 
 This file imports neither JAX nor the JAX package (the grid's tests take
@@ -293,7 +295,8 @@ def test_run_experiment_on_the_card_matches_the_cpu(cuda, tmp_path):
 
 @pytest.mark.parametrize("name,size", [("densenet121", 32), ("mobilenet_v2", 32),
                                        ("googlenet", 32), ("inception_v3", 75),
-                                       ("vgg11", 32), ("vit_tiny", 32), ("swin_tiny", 64)])
+                                       ("vgg11", 32), ("vit_tiny", 32), ("swin_tiny", 64),
+                                       ("convnext_mini", 64)])
 def test_victim_family_on_the_card_matches_the_cpu(cuda, name, size):
     # Logits and the CW-loss input gradient within 1e-4: cuDNN's depthwise,
     # grouped and padded-pool kernels sum in other orders than the CPU.
@@ -1224,3 +1227,125 @@ def test_resnet_epilogue_takes_an_empty_batch_and_refuses_what_it_cannot_take(cu
         resnet_epilogue(y.double(), scale, shift)
     with pytest.raises(ValueError):
         resnet_epilogue(y, scale, shift, y)
+
+
+def _convnext_b_and_reference(dev):
+    """ConvNeXt-B with the benchmark configuration's seeded weights, and the
+    repository's plain reference (``tests/_plain_convnext.py``) on them."""
+    import json
+    from pathlib import Path
+
+    import _plain_convnext
+    from h100bench import inputs
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "h100bench" / "configs" / "convnext_b-fp32.json").read_text())
+    params = inputs.weights(cfg, 2**31 + 23, dev)
+    victim = create_model("convnext_b", device=dev, state_dict=params)
+    return victim, _plain_convnext.model(params, cfg)
+
+
+def test_convnext_b_on_the_card_matches_the_plain_reference(cuda):
+    # Batch 8 at 224², both on the card in fp32 with TF32 off: logits within
+    # 1e-5 of the largest, the CW-loss input gradient within 1e-4 in
+    # relative l2 (the port's addcmul and LayerNorm copies sum in other
+    # orders than the reference's ops, carried through 36 blocks; an H100
+    # read 4.4e-7 and 1.3e-6).
+    victim, reference = _convnext_b_and_reference(cuda)
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(5)).to(cuda)
+    labels = torch.arange(8, device=cuda)
+    out = []
+    for fn in (victim, reference):
+        xt = x.clone().requires_grad_(True)
+        logits = fn(xt)
+        (grad,) = torch.autograd.grad(attack_loss(logits, labels, loss="logits"), xt)
+        out.append((logits.detach(), grad))
+    (lg, gg), (lw, gw) = out
+    logit_gap = float((lg - lw).abs().max() / lw.abs().max())
+    grad_gap = float(torch.linalg.vector_norm(gg - gw) / torch.linalg.vector_norm(gw))
+    print(f"convnext_b b8 on the card: logit_gap {logit_gap:.3e}, grad_gap {grad_gap:.3e}, "
+          f"logits' std across classes {lw.std(-1).tolist()}")
+    assert logit_gap <= 1e-5 and grad_gap <= 1e-4, (logit_gap, grad_gap)
+
+
+_CONVNEXT_TOP = ("victim/convnext/stem", "victim/convnext/dwconv", "victim/convnext/mlp",
+                 "victim/convnext/downsample", "victim/convnext/head")
+
+
+def test_convnext_spans_cover_a_pass_on_the_card(cuda):
+    # One ConvNeXt-B forward and input gradient at batch 8, traced: the
+    # device seconds of the victim's spans (the stem, each block's
+    # depthwise and MLP halves, the downsamples, the head), forward and
+    # backward, add up to within 5% of the pass's device time between CUDA
+    # events around it, with the host kept ahead of the card as in
+    # test_swin_spans_cover_a_pass_on_the_card.
+    from torch.profiler import ProfilerActivity, profile
+
+    from dl_attack_on_imagenet_tpu_torch.utils import profiling
+
+    victim = create_model("convnext_b", device=cuda, seed=0)
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def pass_():
+        xt = x.clone().requires_grad_(True)
+        torch.autograd.grad(victim(xt).square().sum(), xt)
+
+    pass_()  # first uses outside the count
+    torch.cuda.synchronize()
+    profiling.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda._sleep(200_000_000)
+            start.record()
+            pass_()
+            end.record()
+            torch.cuda.synchronize()
+        whole = start.elapsed_time(end) / 1e3
+        totals = profiling.device_totals()
+    finally:
+        profiling.reset()
+    assert {n: totals[n].count for n in _CONVNEXT_TOP} == {
+        "victim/convnext/stem": 1, "victim/convnext/dwconv": 36, "victim/convnext/mlp": 36,
+        "victim/convnext/downsample": 3, "victim/convnext/head": 1}
+    covered = sum(totals[n].forward_s + totals[n].backward_s for n in _CONVNEXT_TOP)
+    shares = {n: (t.forward_s + t.backward_s) / whole for n, t in totals.items()}
+    print(f"convnext_b b8: pass {whole * 1e3:.3f} ms, spans {covered * 1e3:.3f} ms; "
+          f"shares {shares}")
+    assert all(t.backward_s > 0 for t in totals.values())
+    assert abs(covered - whole) <= 0.05 * whole
+
+
+def test_convnext_convolutions_take_contiguous_nchw_on_the_card(cuda):
+    # Every convolution of a ConvNeXt-B forward (the stem, 36 depthwise, 3
+    # downsamples) takes its input and weight in contiguous NCHW, and a
+    # forward and input gradient launch none of cuDNN's layout transposes.
+    # The kernels that ran are printed, for the record of which kernels
+    # run the depthwise convolutions.
+    from collections import Counter
+
+    from torch.overrides import TorchFunctionMode
+
+    victim = create_model("convnext_b", device=cuda, seed=0)
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+    calls = []
+
+    class Convolutions(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.nn.functional.conv2d:
+                calls.append((args[0], args[1]))
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Convolutions():
+        victim(x)
+    assert len(calls) == 40
+    assert all(t.is_contiguous() for pair in calls for t in pair)
+
+    def pass_():
+        xt = x.clone().requires_grad_(True)
+        torch.autograd.grad(victim(xt).square().sum(), xt)
+
+    pass_()
+    names = _device_kernels(pass_)
+    print("convnext_b b8 kernels:", Counter(n[:90] for n in names).most_common(30))
+    assert not [n for n in names if "nhwcToNchw" in n or "nchwToNhwc" in n]

@@ -89,14 +89,15 @@ def test_seeded_weights_are_reproducible():
 
 def test_registry_and_unported_names():
     """The JAX registry's names, sizes and constructors, and exactly the
-    port's own Swin besides (which the JAX package lacks)."""
-    assert set(MODEL_REGISTRY) - set(JAX_REGISTRY) == {"swin_b", "swin_tiny"}
+    port's own Swin and ConvNeXt besides (which the JAX package lacks)."""
+    assert set(MODEL_REGISTRY) - set(JAX_REGISTRY) == {"swin_b", "swin_tiny", "convnext_b",
+                                                       "convnext_mini"}
     shared = {k: size for k, (_, size) in MODEL_REGISTRY.items() if k in JAX_REGISTRY}
     assert shared == {k: size for k, (_, size) in JAX_REGISTRY.items()}
     for key in shared:
         assert MODEL_REGISTRY[key][0].__name__ == JAX_REGISTRY[key][0].__name__
     assert {k: size for k, (_, size) in MODEL_REGISTRY.items() if k not in JAX_REGISTRY} == {
-        "swin_b": 224, "swin_tiny": 64}
+        "swin_b": 224, "swin_tiny": 64, "convnext_b": 224, "convnext_mini": 64}
     with pytest.raises(ValueError, match="unknown model 'alexnet'"):
         create_model("alexnet", device="cpu")
 
@@ -156,8 +157,16 @@ class _Convolutions(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("name,size,form", _FORMS)
+# Each form in both dtypes, and ConvNeXt, which is fp32 only (its bf16
+# build raises), in fp32: its blocks switch to NHWC rows and back.
+_LAYOUTS = ([pytest.param(name, size, form, dtype, id=f"{name}-{size}-{form}-{tag}")
+             for name, size, form in _FORMS
+             for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))]
+            + [pytest.param("convnext_mini", 64, "plain", torch.float32,
+                            id="convnext_mini-64-plain-fp32")])
+
+
+@pytest.mark.parametrize("name,size,form,dtype", _LAYOUTS)
 def test_every_convolution_takes_the_victims_layout(name, size, form, dtype):
     """Forward pre-hooks on every ``nn.Conv2d`` and every ``F.conv2d`` call
     of a forward pass: input and weight contiguous NCHW in an fp32 victim,
