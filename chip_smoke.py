@@ -17,7 +17,11 @@ phase, and exits non-zero if any phase fails:
    for information; ``resnet_epilogue`` at every post-convolution site of
    ResNet-50 at b64, summed over a pass (forward, and forward with the
    input gradient) against the benchmark reader's bounds, beside the
-   BatchNorm, add and ReLU modules it replaces;
+   BatchNorm, add and ReLU modules it replaces; ``convnext_dwconv`` at each
+   ConvNeXt-B stage at b64, summed over a pass, beside its bound, its twin
+   (PyTorch's NCHW depthwise kernels, with autograd's add of the residual's
+   gradient) and cuDNN's channels_last depthwise kernels, a yardstick the
+   port never calls;
 4. checks the served path and three training steps against the plain path
    on the CPU at a small size, and every victim family's logits and CW input
    gradient on the card against the CPU at a small input size (DenseNet-121
@@ -44,7 +48,8 @@ phase, and exits non-zero if any phase fails:
    64 at 224x224 at the benchmark cell's settings (supervised DDrague, 30
    steps), timed and traced the same way, with the window-attention
    kernel's launches held to 24 forwards a victim pass and 24 backwards a
-   pass that records an input gradient, in every run;
+   pass that records an input gradient, in every run; then one ConvNeXt-B
+   batch the same way, the depthwise kernel's launches held to 36 each way;
 8. runs the experiment of ``cli.demo`` through ``run_experiment`` on its
    default victim, DenseNet-121, at 224x224 (K=100, 2 epochs of 64 images,
    val and test of 2 and 5 images, 100 DDrague steps a served batch), then
@@ -657,6 +662,109 @@ def check_resnet_epilogue(dev, n: int = 64) -> dict:
             "bound_by": "bytes", "library_ms": None, "bound_share": bound / ms, "sites": rows}
 
 
+CONVNEXT_B_STAGES = ((56, 128, 3), (28, 256, 3), (14, 512, 27), (7, 1024, 3))
+
+
+def check_convnext_dwconv(dev, n: int = 64) -> dict:
+    """The ConvNeXt depthwise kernel against its twin at each ConvNeXt-B
+    stage at batch ``n``: h within 1e-5 of its largest value, and z's
+    gradient, from h's gradient (channels_last-strided, as a block hands it
+    back) and the residual's, within 1e-5 in relative l2 (49-tap sums in
+    fp32, in another order). Times the kernel's forward,
+    and its forward with the input gradient, with the host ahead of the
+    card, beside the bound (the benchmark reader's count,
+    ``convnext_dwconv_roofline``), the twin (PyTorch's NCHW
+    ``conv_depthwise2d_*`` kernels; its input gradient with autograd's add
+    of the residual's) and cuDNN's channels_last kernels, a yardstick: the
+    port keeps fp32 victims in NCHW and calls no library kernel for this.
+    Sums them over a pass. Its launches are not the main path's, so the
+    row's counts come from ``serve_convnext``."""
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import (
+        convnext_dwconv,
+        convnext_dwconv_reference,
+    )
+    from h100bench.metrics.convnext_dwconv_roofline import pass_seconds
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, max_err = [], 0.0
+    for side, channels, blocks in CONVNEXT_B_STAGES:
+        shape = (n, channels, side, side)
+        z = torch.randn(shape, generator=g, device=dev)
+        weight = torch.randn((channels, 1, 7, 7), generator=g, device=dev) * 0.15
+        bias = torch.randn((channels,), generator=g, device=dev) * 0.1
+        grads = (torch.randn((n, side, side, channels), generator=g, device=dev).permute(
+            0, 3, 1, 2), torch.randn(shape, generator=g, device=dev))
+        x = z.clone().requires_grad_(True)
+        layouts = {"nchw": (z, weight, grads)}
+        cl = torch.channels_last
+        layouts["channels_last"] = (z.contiguous(memory_format=cl),
+                                    weight.contiguous(memory_format=cl),
+                                    tuple(t.contiguous(memory_format=cl) for t in grads))
+        x_cl = layouts["channels_last"][0].clone().requires_grad_(True)
+
+        def forward(fn, layout="nchw"):
+            with torch.no_grad():
+                return fn(layouts[layout][0], layouts[layout][1], bias)[0]
+
+        def both(fn, layout="nchw"):
+            leaf = x if layout == "nchw" else x_cl
+            return torch.autograd.grad(fn(leaf, layouts[layout][1], bias), leaf,
+                                       layouts[layout][2])[0]
+
+        out, want = forward(convnext_dwconv), forward(convnext_dwconv_reference)
+        grad, want_grad = both(convnext_dwconv), both(convnext_dwconv_reference)
+        torch.cuda.synchronize()
+        out_err = float((out - want).abs().max() / want.abs().max())
+        grad_err = float(torch.linalg.vector_norm(grad - want_grad)
+                         / torch.linalg.vector_norm(want_grad))
+        del out, want, grad, want_grad
+        if not (out_err <= 1e-5 and grad_err <= 1e-5):
+            raise AssertionError(f"convnext_dwconv disagrees with its twin at {channels} x "
+                                 f"{side}²: output {out_err}, gradient {grad_err}")
+        max_err = max(max_err, out_err)
+        elements = n * channels * side * side
+        row = {"side": side, "channels": channels, "blocks": blocks, "out_err": out_err,
+               "grad_err": grad_err,
+               "fwd_ms": _time_device_ms(lambda: forward(convnext_dwconv), 20)[0],
+               "ms": _time_device_ms(lambda: both(convnext_dwconv), 20)[0],
+               "plain_fwd_ms": _time_device_ms(lambda: forward(convnext_dwconv_reference),
+                                               20)[0],
+               "plain_ms": _time_device_ms(lambda: both(convnext_dwconv_reference), 20)[0],
+               "library_fwd_ms": _time_device_ms(
+                   lambda: forward(convnext_dwconv_reference, "channels_last"), 20)[0],
+               "library_ms": _time_device_ms(
+                   lambda: both(convnext_dwconv_reference, "channels_last"), 20)[0],
+               "bound_fwd_ms": 1e3 * pass_seconds(elements, 49, False),
+               "bound_ms": 1e3 * pass_seconds(elements, 49, True)}
+        rows.append(row)
+        print(f"convnext_dwconv at b{n}, {channels} x {side}² ({blocks} a pass): forward "
+              f"{row['fwd_ms']:.4f} ms (bound {row['bound_fwd_ms']:.4f}), forward and input "
+              f"gradient {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, bytes; "
+              f"{row['bound_ms'] / row['ms']:.1%}); twin (NCHW) {row['plain_fwd_ms']:.4f} / "
+              f"{row['plain_ms']:.4f} ms; cuDNN channels_last {row['library_fwd_ms']:.4f} / "
+              f"{row['library_ms']:.4f} ms; output err {out_err:.2e}, gradient err "
+              f"{grad_err:.2e}")
+        del z, grads, x, x_cl, layouts
+    keys = ("fwd_ms", "ms", "plain_fwd_ms", "plain_ms", "library_fwd_ms", "library_ms",
+            "bound_fwd_ms", "bound_ms")
+    total = {k: sum(r[k] * r["blocks"] for r in rows) for k in keys}
+    print(f"convnext_dwconv, a ConvNeXt-B pass at b{n} (36 blocks): forward "
+          f"{total['fwd_ms']:.3f} ms (bound {total['bound_fwd_ms']:.3f}), with the input "
+          f"gradient {total['ms']:.3f} ms (bound {total['bound_ms']:.3f} ms, "
+          f"{total['bound_ms'] / total['ms']:.1%}); twin {total['plain_fwd_ms']:.3f} / "
+          f"{total['plain_ms']:.3f} ms; cuDNN channels_last {total['library_fwd_ms']:.3f} / "
+          f"{total['library_ms']:.3f} ms")
+    return {"name": "convnext_dwconv", "route": "cuda",
+            "source": "dl_attack_on_imagenet_tpu_torch/csrc/convnext_dwconv.cu",
+            "replaces": None, "launches": 0, "backward_launches": 0,
+            "max_abs_err": max_err, "ms": total["ms"], "fwd_ms": total["fwd_ms"],
+            "plain_ms": total["plain_ms"], "plain_fwd_ms": total["plain_fwd_ms"],
+            "bound_ms": total["bound_ms"], "bound_fwd_ms": total["bound_fwd_ms"],
+            "bound_by": "bytes", "library_ms": total["library_ms"],
+            "library_fwd_ms": total["library_fwd_ms"],
+            "bound_share": total["bound_ms"] / total["ms"], "stages": rows}
+
+
 def check_small_against_cpu(dev) -> None:
     """The served path on the card against the plain path on the CPU, on the
     tiny victim at a small size (atol 1e-4 after 5 AdamW steps: cuDNN and
@@ -790,11 +898,16 @@ def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
 def _zero_counts() -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
     from dl_attack_on_imagenet_tpu_torch.ops import fused_adamw_project, fused_perturb
-    from dl_attack_on_imagenet_tpu_torch.ops.kernels import resnet_epilogue, swin_window_attention
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import (
+        convnext_dwconv,
+        resnet_epilogue,
+        swin_window_attention,
+    )
 
     fused_perturb.launches = fused_adamw_project.launches = 0
     swin_window_attention.launches = swin_window_attention.backward_launches = 0
     resnet_epilogue.launches = resnet_epilogue.backward_launches = 0
+    convnext_dwconv.launches = convnext_dwconv.backward_launches = 0
 
 
 def _serve_mode(run, images, victim, label: str, budget: bool) -> int:
@@ -978,30 +1091,45 @@ def serve_zoo(dev, zoo=ZOO, size: int = 224, native: int = 299, n: int = 64):
     return launches, max_err
 
 
-def serve_swin(dev, n: int = 64, steps: int = 30, blocks: int = 24) -> tuple:
-    """One served batch of ``n`` on Swin-B at 224x224 at the benchmark
-    cell's settings (K=100, eps 8/255 l∞, CW loss, supervised DDrague of
-    ``steps`` steps), warmed up, timed and traced as in ``serve``, the
-    victim's passes counted by a forward hook on its network. Every run must
-    launch the window-attention kernel once a block forward in each pass,
-    and once a block backward in each pass that records an input gradient
-    (``_counted_mode``). Returns (fused_perturb launches, window-attention
-    forward launches, backward launches) of the timed run, every launch
-    count set to 0 just before it. (The keyword arguments shrink the run for
-    a rehearsal.)"""
+def _serve_cell(dev, name: str, kernel, per_pass: int, n: int, steps: int) -> tuple:
+    """One served batch of ``n`` on the victim ``name`` at 224x224 at the
+    benchmark cells' settings (K=100, eps 8/255 l∞, CW loss, supervised
+    DDrague of ``steps`` steps), warmed up, timed and traced as in
+    ``serve``, the victim's passes counted by a forward hook on its network.
+    Every run must launch ``kernel`` ``per_pass`` times forward in each
+    pass, and as often backward in each pass that records an input
+    gradient (``_counted_mode``). Returns (fused_perturb launches,
+    ``kernel`` forward launches, backward launches) of the timed run, every
+    launch count set to 0 just before it."""
     from dl_attack_on_imagenet_tpu_torch.attacks import ADIL
-    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
     from dl_attack_on_imagenet_tpu_torch.utils import ArtifactCache
 
     with tempfile.TemporaryDirectory() as root:
         cache = ArtifactCache(root)
-        victim, images = _served_inputs(dev, "swin_b", 224, cache, n=n)
+        victim, images = _served_inputs(dev, name, 224, cache, n=n)
         attack = ADIL(victim, eps=EPS, n_atoms=100, loss="logits", steps_inference=steps,
                       cache=cache, attack="supervised")
-        counts = _counted_mode(attack, images, victim, "swin_b 224x224 supervised", False,
-                               swin_window_attention, blocks, True)
+        counts = _counted_mode(attack, images, victim, f"{name} 224x224 supervised", False,
+                               kernel, per_pass, True)
         del victim, images, attack
     return counts
+
+
+def serve_swin(dev, n: int = 64, steps: int = 30, blocks: int = 24) -> tuple:
+    """``_serve_cell`` on Swin-B: the window-attention kernel once a block
+    each way. (The keyword arguments shrink the run for a rehearsal.)"""
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import swin_window_attention
+
+    return _serve_cell(dev, "swin_b", swin_window_attention, blocks, n, steps)
+
+
+def serve_convnext(dev, n: int = 64, steps: int = 30, blocks: int = 36) -> tuple:
+    """``_serve_cell`` on ConvNeXt-B: the depthwise kernel once a block each
+    way, the path of the ``convnext_b-fp32.attack-sup`` cell. (The keyword
+    arguments shrink the run for a rehearsal.)"""
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import convnext_dwconv
+
+    return _serve_cell(dev, "convnext_b", convnext_dwconv, blocks, n, steps)
 
 
 def _check_trained(name: str, d, v, eps: float) -> None:
@@ -3359,7 +3487,8 @@ def main() -> None:
     kernels = [timed("fused_perturb check", check_fused_perturb, dev),
                timed("fused_adamw_project check", check_fused_adamw_project, dev),
                timed("swin_window_attention check", check_swin_window_attention, dev),
-               timed("resnet_epilogue check", check_resnet_epilogue, dev)]
+               timed("resnet_epilogue check", check_resnet_epilogue, dev),
+               timed("convnext_dwconv check", check_convnext_dwconv, dev)]
     timed("small-size checks", lambda: (check_small_against_cpu(dev),
                                         check_train_small_against_cpu(dev),
                                         check_families_against_cpu(dev)))
@@ -3373,6 +3502,9 @@ def main() -> None:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], zoo_err)
     perturb, kernels[2]["launches"], kernels[2]["backward_launches"] = timed(
         "swin_b", serve_swin, dev)
+    kernels[0]["launches"] += perturb
+    perturb, kernels[4]["launches"], kernels[4]["backward_launches"] = timed(
+        "convnext_b", serve_convnext, dev)
     kernels[0]["launches"] += perturb
     with tempfile.TemporaryDirectory() as root:
         for name, phase in (("demo experiment", demo_experiment),

@@ -17,10 +17,11 @@ is the identity (a victim is always in eval mode).
 Layouts. The residual stream is a contiguous NCHW map, and every
 convolution (the stem, each block's depthwise convolution, each
 downsample) takes its input and weight in contiguous NCHW, the layout of
-cuDNN's and PyTorch's fp32 kernels (``victim_memory_format``). The
-LayerNorms and the Linears run on NHWC rows. The layout changes in three
-places: a block's NHWC half starts from a permuted view of the depthwise
-output (the LayerNorm reads it into contiguous NHWC rows) and ends in
+cuDNN's fp32 kernels and of the port's depthwise kernel
+(``victim_memory_format``). The LayerNorms and the Linears run on NHWC
+rows. The layout changes in three places: a block's NHWC half starts from
+a permuted view of the depthwise output (the LayerNorm reads it into
+contiguous NHWC rows) and ends in
 ``addcmul(z, layer_scale, m)`` on the NCHW view of its NHWC result, whose
 output takes the layout of ``z``, contiguous NCHW; a channel LayerNorm
 (:class:`LayerNorm2d`: the stem's, each downsample's and the head's)
@@ -37,7 +38,8 @@ raises).
 
 Spans (``utils.profiling.annotate``, device-timed on the card): per block
 ``victim/convnext/dwconv`` (z -> the depthwise output h; its backward runs
-from h's gradient to z's, the sum with the residual's gradient included)
+from h's gradient to z's, the sum with the residual's gradient included:
+on the card one launch of the kernel's backward)
 and ``victim/convnext/mlp`` (h -> the block's output); per downsample
 ``victim/convnext/downsample``; ``victim/convnext/stem`` and
 ``victim/convnext/head`` (pool, LayerNorm and head) once a pass. Together
@@ -51,6 +53,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.kernels import convnext_dwconv
 from ..utils.profiling import annotate
 from .layers import Conv2d, Linear, resolve_dtype
 from .swin import _Permute
@@ -69,7 +72,14 @@ class LayerNorm2d(LayerNorm):
 
 
 class CNBlock(nn.Module):
-    """torchvision's ``CNBlock`` in eval mode, on a contiguous NCHW map."""
+    """torchvision's ``CNBlock`` in eval mode, on a contiguous NCHW map.
+
+    On a CUDA map the depthwise convolution is the port's kernel
+    (:func:`~..ops.kernels.convnext_dwconv`) with ``block.0``'s weight and
+    bias, which also hands on z for the residual add, so that z's two
+    gradients meet in its backward; elsewhere ``block.0`` itself computes
+    it, as its twin :func:`~..ops.kernels.convnext_dwconv_reference`
+    does."""
 
     def __init__(self, dim: int, kernel_size: int = 7, mlp_ratio: int = 4):
         super().__init__()
@@ -83,10 +93,15 @@ class CNBlock(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         dwconv, to_nhwc, norm, fc1, act, fc2, to_nchw = self.block
         with annotate("victim/convnext/dwconv", device=z.is_cuda) as span:
-            h = span.backward(z, dwconv(z))
+            if z.is_cuda:
+                h, residual = convnext_dwconv(z, dwconv.weight, dwconv.bias, dwconv.stride,
+                                              dwconv.padding)
+            else:
+                h, residual = dwconv(z), z
+            h = span.backward(z, h)
         with annotate("victim/convnext/mlp", device=z.is_cuda) as span:
             m = to_nchw(fc2(act(fc1(norm(to_nhwc(h))))))
-            return span.backward(h, torch.addcmul(z, self.layer_scale, m))
+            return span.backward(h, torch.addcmul(residual, self.layer_scale, m))
 
 
 class Downsample(nn.Sequential):

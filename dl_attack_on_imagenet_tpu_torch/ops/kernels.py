@@ -6,17 +6,21 @@ of the same names in ``dl_attack_on_imagenet_tpu/ops/pallas_kernels.py``;
 gradient) replaces none: the JAX package has no Swin; nor does
 ``resnet_epilogue`` (a ResNet's frozen BatchNorm, residual add and ReLU
 after a convolution, forward and input gradient), which XLA fuses on the
-TPU. Their CUDA sources are ``csrc/<name>.cu``. On a CUDA tensor a wrapper
-launches its kernel or raises; only tensors on the CPU take the plain twin.
-The Swin and ResNet wrappers take CUDA tensors only: each twin is the
-model's own path (``models.swin.window_attention_reference``, and the
-ResNet's ``bn`` -> ``+`` -> ``relu`` modules), and the model picks one or
-the other by what its call observes.
+TPU; nor does ``convnext_dwconv`` (ConvNeXt's 7x7 depthwise convolution,
+forward and input gradient with the residual's gradient summed in): the
+JAX package has no ConvNeXt. Their CUDA sources are ``csrc/<name>.cu``. On
+a CUDA tensor a wrapper launches its kernel or raises; only tensors on the
+CPU take the plain twin. The Swin, ResNet and ConvNeXt wrappers take CUDA
+tensors only: each twin is the model's own path
+(``models.swin.window_attention_reference``, the ResNet's ``bn`` -> ``+``
+-> ``relu`` modules, :func:`convnext_dwconv_reference`), and the model
+picks one or the other by what its call observes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -464,3 +468,197 @@ def resnet_epilogue(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 resnet_epilogue.launches = 0
 resnet_epilogue.backward_launches = 0
+
+
+# The ConvNeXt depthwise kernel (csrc/convnext_dwconv.cu): its threads a
+# block, the shared memory a block may use on an H100, the border a plane
+# keeps in shared memory, and the taps of a filter.
+_DWCONV_THREADS, _DWCONV_SHARED_BYTES, _DWCONV_HALO, _DWCONV_TAPS = 128, 232448, 3, 49
+
+
+@functools.lru_cache(maxsize=None)
+def convnext_dwconv_geometry(h: int, w: int) -> Tuple[int, ...]:
+    """How the depthwise kernel lays out an h x w map: (tile, band_rows,
+    bands, per_block, pitch, plane_stride, map_floats).
+
+    Each thread computes a tile x tile block of outputs: 7 where 7 divides
+    both sides (every ConvNeXt-B map at 224²), else 4. A block of 128
+    threads takes ``per_block`` whole planes where a plane has at most 128
+    tiles (``bands`` 1, ``band_rows`` the plane's tile rows), else one band
+    of ``band_rows`` rows of one plane, ``bands`` a plane. In shared memory
+    a row takes ``pitch`` = w + 3 floats (the gap after a row is the zero
+    border of that row and of the next) and a plane ``plane_stride`` = its
+    rows plus 3 times the pitch, likewise; ``map_floats`` holds the planes
+    to the last window's far corner. Raises on a map over 128 tiles wide or
+    over a block's shared memory.
+    """
+    tile = 7 if h % 7 == 0 and w % 7 == 0 else 4
+    tiles_x, tiles_y = -(-w // tile), -(-h // tile)
+    if tiles_x > _DWCONV_THREADS:
+        raise ValueError(f"convnext_dwconv: a {h}x{w} map is over {_DWCONV_THREADS} tiles of "
+                         f"{tile} wide; the kernel takes maps up to {_DWCONV_THREADS * tile} wide")
+    if tiles_x * tiles_y <= _DWCONV_THREADS:
+        band_tiles, bands, per_block = tiles_y, 1, _DWCONV_THREADS // (tiles_x * tiles_y)
+    else:
+        band_tiles = _DWCONV_THREADS // tiles_x
+        bands, per_block = -(-tiles_y // band_tiles), 1
+    band_rows, halo = band_tiles * tile, _DWCONV_HALO
+    pitch = w + halo
+    plane_stride = ((h if bands == 1 else band_rows) + halo) * pitch
+    last = (halo * pitch + halo + (per_block - 1) * plane_stride
+            + (band_rows + halo - 1) * pitch + tiles_x * tile + halo - 1)
+    map_floats = -(-(last + 1) // 4) * 4
+    if 4 * (map_floats + per_block * _DWCONV_TAPS) > _DWCONV_SHARED_BYTES:
+        raise ValueError(f"convnext_dwconv: a {h}x{w} map does not fit a block's shared memory")
+    return tile, band_rows, bands, per_block, pitch, plane_stride, map_floats
+
+
+def convnext_dwconv_reference(z: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                              stride=1, padding=3):
+    """The plain twin of :func:`convnext_dwconv`: the block's ``Conv2d`` as
+    it computes in fp32, and z itself for the residual."""
+    return torch.nn.functional.conv2d(z, weight, bias, stride, padding, 1, z.shape[1]), z
+
+
+_DWCONV_FNS = {}
+
+
+def _bind_dwconv():
+    lib = native.load("convnext_dwconv")
+    fn = _DWCONV_FNS.get(lib)
+    if fn is None:
+        fn = lib.convnext_dwconv_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _DWCONV_FNS[lib] = fn
+    return fn
+
+
+def _reads_channels_last(t: torch.Tensor) -> bool:
+    """Whether the kernel reads ``t`` (N, C, H, W) in its channels_last
+    strides as they are: where they are not contiguous NCHW, and a block's
+    planes are channels of one image that its threads share out (whole
+    planes, their count dividing C and the block's 128 threads)."""
+    if t.is_contiguous() or not t.is_contiguous(memory_format=torch.channels_last):
+        return False
+    _, c, h, w = t.shape
+    _, _, bands, per_block = convnext_dwconv_geometry(h, w)[:4]
+    return bands == 1 and c % per_block == 0 and _DWCONV_THREADS % per_block == 0
+
+
+def _launch_dwconv(backward: bool, src: torch.Tensor, weight: torch.Tensor,
+                   extra: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch over ``src``'s (N, C, H, W) map into ``out``, on ``src``'s
+    device and current stream: the forward (``extra`` the bias) or the input
+    gradient (``src`` h's gradient, read in its channels_last strides where
+    :func:`_reads_channels_last` takes them, else copied to NCHW first;
+    ``extra`` the residual's). Raises off CUDA. A ConvNeXt-B pass launches
+    72 times, so the host's part is kept short: no device switch where the
+    tensor is on the current device, and the raw stream handle."""
+    if not src.is_cuda:
+        raise ValueError("convnext_dwconv: the kernel runs on CUDA tensors only (the CPU takes "
+                         "convnext_dwconv_reference)")
+    n, c, h, w = src.shape
+    bias, res = (None, extra) if backward else (extra, None)
+    channels_last = _reads_channels_last(src)
+    if not channels_last:
+        src = src.contiguous()
+    device = src.get_device()
+    args = (src.data_ptr(), weight.data_ptr(), _pointer(bias), _pointer(res), out.data_ptr(),
+            int(backward), int(channels_last), n * c, c, h, w, *convnext_dwconv_geometry(h, w))
+    if device == torch._C._cuda_getDevice():
+        err = _bind_dwconv()(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = _bind_dwconv()(*args, torch._C._cuda_getCurrentRawStream(device))
+    if err:
+        raise RuntimeError(f"convnext_dwconv: kernel launch failed with CUDA error {err}")
+
+
+def _dwconv_forward(z, weight, bias) -> torch.Tensor:
+    h = torch.empty_like(z)
+    if z.numel():
+        _launch_dwconv(False, z, weight, bias, h)
+        convnext_dwconv.launches += 1
+    return h
+
+
+class _ConvNeXtDWConv(torch.autograd.Function):
+    """The kernel's forward, returning h and z itself (the residual's z),
+    so that both of z's gradients reach the one backward: the kernel's
+    input gradient over h's gradient with the residual's added. It saves
+    the weight alone."""
+
+    @staticmethod
+    def forward(ctx, z, weight, bias):
+        ctx.save_for_backward(weight)
+        return _dwconv_forward(z, weight, bias), z
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_h, grad_residual):
+        (weight,) = ctx.saved_tensors
+        grad_residual = grad_residual.contiguous()
+        dz = torch.empty_like(grad_residual)
+        if dz.numel():
+            _launch_dwconv(True, grad_h, weight, grad_residual, dz)
+            convnext_dwconv.backward_launches += 1
+        return dz, None, None
+
+
+def _pair(v) -> tuple:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def convnext_dwconv(z: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stride=1,
+                    padding=3):
+    """A ConvNeXt block's 7x7 depthwise convolution, and z for its residual.
+
+    Args:
+      z: (N, C, H, W) the block's input, contiguous NCHW float32.
+      weight: (C, 1, 7, 7) and bias (C,): the block's depthwise ``Conv2d``;
+        stride and padding its own, which must be 1 and 3.
+
+    Returns (h, residual): h = the convolution of z plus the bias, and
+    residual, z itself for the block's ``z + layer_scale * m``. Under
+    autograd the two go through one backward: z's gradient is the kernel's
+    input gradient over h's gradient with the residual's gradient added in
+    the same pass, so nothing else sums the two. The weight and bias get no
+    gradient, and may not require one while autograd records. Every tensor
+    must be float32 and contiguous on z's CUDA device, the map under 2^31
+    elements. Each forward launch adds one to ``convnext_dwconv.launches``,
+    each backward to ``convnext_dwconv.backward_launches``; an empty batch
+    launches nothing.
+    """
+    if z.dim() != 4:
+        raise ValueError(f"convnext_dwconv: z must be (N, C, H, W), got {tuple(z.shape)}")
+    n, c, h, w = z.shape
+    if weight.shape != (c, 1, 7, 7):
+        raise ValueError(f"convnext_dwconv: the kernel takes a 7x7 depthwise weight ({c}, 1, 7, "
+                         f"7), got {tuple(weight.shape)}")
+    if bias is None or bias.shape != (c,):
+        raise ValueError(f"convnext_dwconv: the bias must be ({c},)")
+    if _pair(stride) != (1, 1) or _pair(padding) != (3, 3):
+        raise ValueError(f"convnext_dwconv: the kernel takes stride 1 and padding 3, got stride "
+                         f"{stride} and padding {padding}")
+    if not (z.is_cuda and weight.device == z.device and bias.device == z.device):
+        raise ValueError("convnext_dwconv: z, the weight and the bias must be on one CUDA device "
+                         "(the CPU takes convnext_dwconv_reference)")
+    if not (z.dtype == weight.dtype == bias.dtype == torch.float32):
+        raise TypeError("convnext_dwconv: the kernel takes float32 only")
+    if not (z.is_contiguous() and weight.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("convnext_dwconv: the kernel takes contiguous (NCHW) tensors")
+    if z.numel() >= 1 << 31:
+        raise ValueError(f"convnext_dwconv: the kernel takes maps under 2^31 elements, got "
+                         f"{z.numel()}")
+    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
+        raise ValueError("convnext_dwconv: the kernel gives the weight and bias no gradient; "
+                         "freeze them (create_model does) or run without autograd")
+    convnext_dwconv_geometry(h, w)  # raises on a map the kernel cannot hold
+    if torch.is_grad_enabled() and z.requires_grad:
+        return _ConvNeXtDWConv.apply(z, weight, bias)
+    return _dwconv_forward(z, weight, bias), z
+
+
+convnext_dwconv.launches = 0
+convnext_dwconv.backward_launches = 0

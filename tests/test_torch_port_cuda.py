@@ -25,7 +25,12 @@ its largest value, each of dq, dk, dv within 1e-4 in relative l2), and its
 launches: 24 forwards and 24 backwards a Swin-B pass, ``swin_tiny``'s
 blocks too, none for an empty batch; ConvNeXt-B against the plain
 reference on the card, its device-timed spans against a whole pass, and
-its convolutions in contiguous NCHW. Every test here needs a GPU and skips
+its convolutions in contiguous NCHW; the ConvNeXt depthwise kernel against
+its twin at every ConvNeXt-B stage shape and convnext_mini's (h within 1e-5
+of its largest value, z's gradient with the residual's within 1e-5 in
+relative l2; h's gradient contiguous and in the channels_last strides a
+block hands it back in), and its launches: 36 forwards and 36 backwards a
+ConvNeXt-B pass, none for an empty batch. Every test here needs a GPU and skips
 without one.
 
 This file imports neither JAX nor the JAX package (the grid's tests take
@@ -1317,14 +1322,17 @@ def test_convnext_spans_cover_a_pass_on_the_card(cuda):
 
 
 def test_convnext_convolutions_take_contiguous_nchw_on_the_card(cuda):
-    # Every convolution of a ConvNeXt-B forward (the stem, 36 depthwise, 3
-    # downsamples) takes its input and weight in contiguous NCHW, and a
-    # forward and input gradient launch none of cuDNN's layout transposes.
-    # The kernels that ran are printed, for the record of which kernels
-    # run the depthwise convolutions.
+    # Every convolution of a ConvNeXt-B forward takes its input and weight
+    # in contiguous NCHW: the 4 that go to cuDNN (the stem, 3 downsamples)
+    # and the 36 depthwise ones, which launch the port's kernel; a forward
+    # and input gradient launch none of cuDNN's layout transposes and none
+    # of PyTorch's conv_depthwise2d kernels. The kernels that ran are
+    # printed, for the record.
     from collections import Counter
 
     from torch.overrides import TorchFunctionMode
+
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import convnext_dwconv
 
     victim = create_model("convnext_b", device=cuda, seed=0)
     x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
@@ -1336,9 +1344,10 @@ def test_convnext_convolutions_take_contiguous_nchw_on_the_card(cuda):
                 calls.append((args[0], args[1]))
             return func(*args, **(kwargs or {}))
 
+    before = convnext_dwconv.launches
     with torch.no_grad(), Convolutions():
         victim(x)
-    assert len(calls) == 40
+    assert len(calls) == 4 and convnext_dwconv.launches - before == 36
     assert all(t.is_contiguous() for pair in calls for t in pair)
 
     def pass_():
@@ -1349,3 +1358,85 @@ def test_convnext_convolutions_take_contiguous_nchw_on_the_card(cuda):
     names = _device_kernels(pass_)
     print("convnext_b b8 kernels:", Counter(n[:90] for n in names).most_common(30))
     assert not [n for n in names if "nhwcToNchw" in n or "nchwToNhwc" in n]
+    assert not [n for n in names if "conv_depthwise2d" in n]
+    assert [n for n in names if "dwconv_kernel" in n]
+
+
+# (N, C, side): ConvNeXt-B's four stages at b8, convnext_mini's three maps
+# (at 4² every tap but the centre's reaches past the map), and an odd batch.
+CONVNEXT_DWCONV_SHAPES = [(8, 128, 56), (8, 256, 28), (8, 512, 14), (8, 1024, 7), (2, 16, 16),
+                          (2, 32, 8), (2, 64, 4), (3, 512, 14)]
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("n,channels,side", CONVNEXT_DWCONV_SHAPES)
+def test_convnext_dwconv_matches_its_twin_on_the_card(cuda, n, channels, side, layout):
+    # h within 1e-5 of its largest value, and z's gradient from h's
+    # gradient and a nonzero residual gradient within 1e-5 in relative l2
+    # of the twin's (PyTorch's kernels, and autograd's add of the
+    # residual's gradient): both sum 49 fp32 products, in other orders. One
+    # launch each way. h's gradient comes contiguous or, as a block's
+    # LayerNorm hands it back, in channels_last strides, which the kernel
+    # reads as they are wherever a block's planes are channels of one image:
+    # at every map but 4², where a block's 128 planes span images.
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import (
+        _reads_channels_last,
+        convnext_dwconv,
+        convnext_dwconv_reference,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(side)
+    shape = (n, channels, side, side)
+    z = torch.randn(shape, generator=g, device=cuda)
+    weight = torch.randn((channels, 1, 7, 7), generator=g, device=cuda) * 0.15
+    bias = torch.randn((channels,), generator=g, device=cuda) * 0.1
+    dh, dres = (torch.randn(shape, generator=g, device=cuda) for _ in range(2))
+    if layout == "channels_last":
+        dh = dh.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    assert _reads_channels_last(dh) == (layout == "channels_last" and side != 4)
+    counts = lambda: (convnext_dwconv.launches, convnext_dwconv.backward_launches)
+    before = counts()
+    out = []
+    for fn in (convnext_dwconv, convnext_dwconv_reference):
+        zt = z.clone().requires_grad_(True)
+        h, residual = fn(zt, weight, bias)
+        (dz,) = torch.autograd.grad((h, residual), zt, (dh, dres))
+        out.append((h.detach(), dz))
+    assert counts() == (before[0] + 1, before[1] + 1)
+    (h, dz), (want, want_dz) = out
+    out_err = float((h - want).abs().max() / want.abs().max())
+    grad_err = float(torch.linalg.vector_norm(dz - want_dz) / torch.linalg.vector_norm(want_dz))
+    assert out_err <= 1e-5 and grad_err <= 1e-5, (out_err, grad_err)
+    # Without the residual's gradient z's would be another.
+    assert float(torch.linalg.vector_norm(dz - dres - want_dz)) > 0.1 * float(
+        torch.linalg.vector_norm(want_dz))
+
+
+def test_convnext_dwconv_takes_an_empty_batch_on_the_card(cuda):
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import convnext_dwconv
+
+    z = torch.zeros((0, 128, 56, 56), device=cuda, requires_grad=True)
+    weight, bias = torch.zeros((128, 1, 7, 7), device=cuda), torch.zeros(128, device=cuda)
+    counts = lambda: (convnext_dwconv.launches, convnext_dwconv.backward_launches)
+    before = counts()
+    h, residual = convnext_dwconv(z, weight, bias)
+    (dz,) = torch.autograd.grad((h.sum() + residual.sum(),), z)
+    assert h.shape == z.shape and dz.shape == z.shape and counts() == before
+
+
+@pytest.mark.parametrize("name,size,blocks", [("convnext_b", 224, 36), ("convnext_mini", 64, 5)])
+def test_every_convnext_block_launches_the_kernel_on_the_card(cuda, name, size, blocks):
+    # A forward and input gradient launch the kernel once each way a block;
+    # a forward without autograd only forwards.
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import convnext_dwconv
+
+    victim = create_model(name, device=cuda, seed=0)
+    x = torch.rand((2, size, size, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    counts = lambda: (convnext_dwconv.launches, convnext_dwconv.backward_launches)
+    before = counts()
+    xt = x.clone().requires_grad_(True)
+    torch.autograd.grad(victim(xt).square().sum(), xt)
+    assert counts() == (before[0] + blocks, before[1] + blocks)
+    with torch.no_grad():
+        victim(x)
+    assert counts() == (before[0] + 2 * blocks, before[1] + blocks)
