@@ -3,9 +3,10 @@
 Port of ``dl_attack_on_imagenet_tpu/models/__init__.py``, with the same
 registry: the ResNets, DenseNet, GoogLeNet, Inception-v3, MobileNetV2, VGG,
 ViT and the tiny test CNN; the port adds Swin-B (``swin_b``, fp32 only) and
-its tiny test twin (``swin_tiny``), and ConvNeXt-B (``convnext_b``, fp32
-only) and its small test twin (``convnext_mini``), which the JAX package
-lacks. A name picks a classifier, the ImageNet normalization is prepended,
+its tiny test twin (``swin_tiny``), ConvNeXt-B (``convnext_b``, fp32
+only) and its small test twin (``convnext_mini``), and XCiT-L12/16
+(``xcit_l12``, fp32 only) and its small test twin (``xcit_mini``), which
+the JAX package lacks. A name picks a classifier, the ImageNet normalization is prepended,
 and the result is a frozen function from [0, 1] NHWC images to logits:
 eval mode, no weight gradients, and every convolution in the memory layout
 that its dtype's kernels take (:func:`victim_memory_format`): contiguous
@@ -38,9 +39,10 @@ from .swin import ShiftedWindowAttention, swin_b, swin_tiny
 from .tiny import tiny_cnn
 from .vgg import vgg11, vgg16, vgg19
 from .vit import SelfAttention, VisionTransformer, vit_b16, vit_tiny
+from .xcit import XCA, XCiT, xcit_l12, xcit_mini
 
 # name -> (constructor, default input size), the JAX package's registry and
-# the port's Swin and ConvNeXt; the short aliases are the reference CLI's
+# the port's Swin, ConvNeXt and XCiT; the short aliases are the reference CLI's
 # names ('resnet' means resnet18).
 MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "resnet": (resnet18, 224),
@@ -67,6 +69,8 @@ MODEL_REGISTRY: Dict[str, Tuple[Callable[..., nn.Module], int]] = {
     "swin_tiny": (swin_tiny, 64),
     "convnext_b": (convnext_b, 224),
     "convnext_mini": (convnext_mini, 64),
+    "xcit_l12": (xcit_l12, 224),
+    "xcit_mini": (xcit_mini, 64),
 }
 
 
@@ -107,7 +111,8 @@ def victim_memory_format(dtype: torch.dtype) -> torch.memory_format:
     runs each block's LayerNorm and Linears on NHWC rows, hands every fp32
     convolution after them a contiguous NCHW map again: its residual add
     writes the stream's NCHW layout, and its channel LayerNorms copy back
-    to NCHW."""
+    to NCHW. XCiT, whose stream is (B, N, C) rows, hands each LPI
+    convolution a contiguous NCHW copy of its tokens as a map."""
     if resolve_dtype(dtype) == torch.bfloat16:
         return torch.channels_last
     return torch.contiguous_format
@@ -175,7 +180,9 @@ def _init_weights(net: nn.Module, generator: torch.Generator, conv_fan: str) -> 
     and LayerNorm at 1 and 0, linear layers N(0, 0.01) (their biases, where
     they have one, 0), ViT's attention Xavier-uniform, its class token 0 and
     its position embedding N(0, 0.02), Swin's relative-position bias tables
-    N(0, 0.02)."""
+    N(0, 0.02), XCiT's class token N(0, 0.02) and its XCA temperatures 1
+    (timm's). XCiT's layer scales keep their published 1e-5 and its
+    BatchNorms the running statistics of a fresh BatchNorm (0 and 1)."""
     with torch.no_grad():
         for mod in net.modules():
             if isinstance(mod, nn.Conv2d):
@@ -198,6 +205,10 @@ def _init_weights(net: nn.Module, generator: torch.Generator, conv_fan: str) -> 
                 nn.init.normal_(mod.encoder.pos_embedding, std=0.02, generator=generator)
             elif isinstance(mod, ShiftedWindowAttention):
                 nn.init.normal_(mod.relative_position_bias_table, std=0.02, generator=generator)
+            elif isinstance(mod, XCiT):
+                nn.init.normal_(mod.cls_token, std=0.02, generator=generator)
+            elif isinstance(mod, XCA):
+                mod.temperature.fill_(1.0)
 
 
 def create_model(
@@ -276,4 +287,5 @@ __all__ = ["MODEL_REGISTRY", "Normalize", "VictimModel", "blanket_input_size",
            "convnext_b", "convnext_mini", "create_model", "densenet121", "densenet169",
            "depth_to_space", "fast_victim_kwargs", "googlenet", "inception_v3", "mobilenet_v2",
            "resnet18", "resnet34", "resnet50", "space_to_depth", "swin_b", "swin_tiny",
-           "tiny_cnn", "vgg11", "vgg16", "vgg19", "victim_memory_format", "vit_b16", "vit_tiny"]
+           "tiny_cnn", "vgg11", "vgg16", "vgg19", "victim_memory_format", "vit_b16", "vit_tiny",
+           "xcit_l12", "xcit_mini"]

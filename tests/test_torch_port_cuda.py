@@ -30,7 +30,9 @@ its twin at every ConvNeXt-B stage shape and convnext_mini's (h within 1e-5
 of its largest value, z's gradient with the residual's within 1e-5 in
 relative l2; h's gradient contiguous and in the channels_last strides a
 block hands it back in), and its launches: 36 forwards and 36 backwards a
-ConvNeXt-B pass, none for an empty batch. Every test here needs a GPU and skips
+ConvNeXt-B pass, none for an empty batch; XCiT-L12 against the plain
+reference on the card, its device-timed spans against a whole pass, and
+its convolutions in contiguous NCHW. Every test here needs a GPU and skips
 without one.
 
 This file imports neither JAX nor the JAX package (the grid's tests take
@@ -301,7 +303,7 @@ def test_run_experiment_on_the_card_matches_the_cpu(cuda, tmp_path):
 @pytest.mark.parametrize("name,size", [("densenet121", 32), ("mobilenet_v2", 32),
                                        ("googlenet", 32), ("inception_v3", 75),
                                        ("vgg11", 32), ("vit_tiny", 32), ("swin_tiny", 64),
-                                       ("convnext_mini", 64)])
+                                       ("convnext_mini", 64), ("xcit_mini", 64)])
 def test_victim_family_on_the_card_matches_the_cpu(cuda, name, size):
     # Logits and the CW-loss input gradient within 1e-4: cuDNN's depthwise,
     # grouped and padded-pool kernels sum in other orders than the CPU.
@@ -1440,3 +1442,127 @@ def test_every_convnext_block_launches_the_kernel_on_the_card(cuda, name, size, 
     with torch.no_grad():
         victim(x)
     assert counts() == (before[0] + 2 * blocks, before[1] + blocks)
+
+
+def _xcit_l12_and_reference(dev):
+    """XCiT-L12 with the benchmark configuration's seeded weights (through
+    the benchmark's ``program.victim``, which adds the BatchNorms' step
+    counters), and the repository's plain reference
+    (``tests/_plain_xcit.py``) on them."""
+    import json
+    from pathlib import Path
+
+    import _plain_xcit
+    from h100bench import inputs, program
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "h100bench" / "configs" / "xcit_l12-fp32.json").read_text())
+    params = inputs.weights(cfg, 2**31 + 25, dev)
+    return program.victim(cfg, params, dev), _plain_xcit.model(params, cfg)
+
+
+def test_xcit_l12_on_the_card_matches_the_plain_reference(cuda):
+    # Batch 8 at 224², both on the card in fp32 with TF32 off: logits within
+    # 1e-5 of the largest, the CW-loss input gradient within 1e-4 in
+    # relative l2 (the port's addcmuls, its stem's add before the tokens'
+    # copy and its class attention's division by sqrt(d) sum and round in
+    # other orders than the reference's ops, carried through 12 blocks and
+    # 2 class-attention layers).
+    victim, reference = _xcit_l12_and_reference(cuda)
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(5)).to(cuda)
+    labels = torch.arange(8, device=cuda)
+    out = []
+    for fn in (victim, reference):
+        xt = x.clone().requires_grad_(True)
+        logits = fn(xt)
+        (grad,) = torch.autograd.grad(attack_loss(logits, labels, loss="logits"), xt)
+        out.append((logits.detach(), grad))
+    (lg, gg), (lw, gw) = out
+    logit_gap = float((lg - lw).abs().max() / lw.abs().max())
+    grad_gap = float(torch.linalg.vector_norm(gg - gw) / torch.linalg.vector_norm(gw))
+    print(f"xcit_l12 b8 on the card: logit_gap {logit_gap:.3e}, grad_gap {grad_gap:.3e}, "
+          f"logits' std across classes {lw.std(-1).tolist()}")
+    assert logit_gap <= 1e-5 and grad_gap <= 1e-4, (logit_gap, grad_gap)
+
+
+_XCIT_TOP = ("victim/xcit/stem", "victim/xcit/xca", "victim/xcit/lpi", "victim/xcit/mlp",
+             "victim/xcit/class_attn", "victim/xcit/head")
+
+
+def test_xcit_spans_cover_a_pass_on_the_card(cuda):
+    # One XCiT-L12 forward and input gradient at batch 8, traced: the
+    # device seconds of the victim's spans (the stem, each block's XCA, LPI
+    # and MLP sublayers, the class-attention layers, the head), forward and
+    # backward, add up to within 5% of the pass's device time between CUDA
+    # events around it, with the host kept ahead of the card as in
+    # test_swin_spans_cover_a_pass_on_the_card. The shares are printed.
+    from torch.profiler import ProfilerActivity, profile
+
+    from dl_attack_on_imagenet_tpu_torch.utils import profiling
+
+    victim, _ = _xcit_l12_and_reference(cuda)
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def pass_():
+        xt = x.clone().requires_grad_(True)
+        torch.autograd.grad(victim(xt).square().sum(), xt)
+
+    pass_()  # first uses outside the count
+    torch.cuda.synchronize()
+    profiling.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda._sleep(200_000_000)
+            start.record()
+            pass_()
+            end.record()
+            torch.cuda.synchronize()
+        whole = start.elapsed_time(end) / 1e3
+        totals = profiling.device_totals()
+    finally:
+        profiling.reset()
+    assert {n: totals[n].count for n in _XCIT_TOP} == {
+        "victim/xcit/stem": 1, "victim/xcit/xca": 12, "victim/xcit/lpi": 12,
+        "victim/xcit/mlp": 12, "victim/xcit/class_attn": 2, "victim/xcit/head": 1}
+    covered = sum(totals[n].forward_s + totals[n].backward_s for n in _XCIT_TOP)
+    shares = {n: (t.forward_s + t.backward_s) / whole for n, t in totals.items()}
+    print(f"xcit_l12 b8: pass {whole * 1e3:.3f} ms, spans {covered * 1e3:.3f} ms; "
+          f"shares {shares}")
+    assert all(t.backward_s > 0 for t in totals.values())
+    assert abs(covered - whole) <= 0.05 * whole
+
+
+def test_xcit_convolutions_take_contiguous_nchw_on_the_card(cuda):
+    # Every convolution of an XCiT-L12 forward takes its input and weight in
+    # contiguous NCHW: the stem's 4, the position encoding's 1x1 and the 24
+    # depthwise 3x3s of LPI; a forward and input gradient launch none of
+    # cuDNN's layout transposes. The kernels that ran are printed, for the
+    # record.
+    from collections import Counter
+
+    from torch.overrides import TorchFunctionMode
+
+    victim = create_model("xcit_l12", device=cuda, seed=0)
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+    calls = []
+
+    class Convolutions(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.nn.functional.conv2d:
+                calls.append((args[0], args[1]))
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Convolutions():
+        victim(x)
+    assert len(calls) == 4 + 1 + 24
+    assert all(t.is_contiguous() for pair in calls for t in pair)
+
+    def pass_():
+        xt = x.clone().requires_grad_(True)
+        torch.autograd.grad(victim(xt).square().sum(), xt)
+
+    pass_()
+    names = _device_kernels(pass_)
+    print("xcit_l12 b8 kernels:", Counter(n[:90] for n in names).most_common(40))
+    assert not [n for n in names if "nhwcToNchw" in n or "nchwToNhwc" in n]

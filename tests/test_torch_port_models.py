@@ -89,15 +89,17 @@ def test_seeded_weights_are_reproducible():
 
 def test_registry_and_unported_names():
     """The JAX registry's names, sizes and constructors, and exactly the
-    port's own Swin and ConvNeXt besides (which the JAX package lacks)."""
+    port's own Swin, ConvNeXt and XCiT besides (which the JAX package
+    lacks)."""
     assert set(MODEL_REGISTRY) - set(JAX_REGISTRY) == {"swin_b", "swin_tiny", "convnext_b",
-                                                       "convnext_mini"}
+                                                       "convnext_mini", "xcit_l12", "xcit_mini"}
     shared = {k: size for k, (_, size) in MODEL_REGISTRY.items() if k in JAX_REGISTRY}
     assert shared == {k: size for k, (_, size) in JAX_REGISTRY.items()}
     for key in shared:
         assert MODEL_REGISTRY[key][0].__name__ == JAX_REGISTRY[key][0].__name__
     assert {k: size for k, (_, size) in MODEL_REGISTRY.items() if k not in JAX_REGISTRY} == {
-        "swin_b": 224, "swin_tiny": 64, "convnext_b": 224, "convnext_mini": 64}
+        "swin_b": 224, "swin_tiny": 64, "convnext_b": 224, "convnext_mini": 64,
+        "xcit_l12": 224, "xcit_mini": 64}
     with pytest.raises(ValueError, match="unknown model 'alexnet'"):
         create_model("alexnet", device="cpu")
 
@@ -157,13 +159,14 @@ class _Convolutions(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-# Each form in both dtypes, and ConvNeXt, which is fp32 only (its bf16
-# build raises), in fp32: its blocks switch to NHWC rows and back.
+# Each form in both dtypes, and ConvNeXt and XCiT, which are fp32 only
+# (their bf16 builds raise), in fp32: ConvNeXt's blocks switch to NHWC rows
+# and back, XCiT's LPI from (B, N, C) token rows to a map and back.
 _LAYOUTS = ([pytest.param(name, size, form, dtype, id=f"{name}-{size}-{form}-{tag}")
              for name, size, form in _FORMS
              for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))]
-            + [pytest.param("convnext_mini", 64, "plain", torch.float32,
-                            id="convnext_mini-64-plain-fp32")])
+            + [pytest.param(name, 64, "plain", torch.float32, id=f"{name}-64-plain-fp32")
+               for name in ("convnext_mini", "xcit_mini")])
 
 
 @pytest.mark.parametrize("name,size,form,dtype", _LAYOUTS)
