@@ -765,6 +765,89 @@ def check_convnext_dwconv(dev, n: int = 64) -> dict:
             "bound_share": total["bound_ms"] / total["ms"], "stages": rows}
 
 
+# XCiT-L12's XCA blocks at 224²: tokens, heads, head dim, blocks a pass; the
+# benchmark configuration's temperature.
+XCIT_L12_XCA = (196, 16, 48, 12)
+XCIT_TEMPERATURE = 20.0
+
+
+def check_xcit_xca(dev, n: int = 64) -> dict:
+    """The XCiT XCA kernel against its plain twin at XCiT-L12's shape at
+    batch ``n`` (196 tokens, 16 heads of 48, every temperature the
+    configuration's 20, q, k, v, and the output's gradient of unit scale):
+    both held to the twin computed in float64, the output within 1e-5 of its
+    largest value and dq, dk and dv each within 1e-4 in relative l2. Times
+    the kernel's forward, and its forward with the input gradient, beside
+    the twin's and the bound (the benchmark reader's count,
+    ``xcit_xca_roofline``), a block and a pass of 12 blocks, with the host
+    ahead of the card. Its launches are not the main path's, so the row's
+    counts come from ``serve_xcit``."""
+    from dl_attack_on_imagenet_tpu_torch.models.xcit import xca_reference
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import xcit_xca
+    from h100bench.metrics.xcit_xca_roofline import pass_seconds
+
+    tokens, heads, d, blocks = XCIT_L12_XCA
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn((n, tokens, 3 * heads * d), generator=g, device=dev)
+    tau = torch.full((heads, 1, 1), XCIT_TEMPERATURE, device=dev)
+    grad_out = torch.randn((n, tokens, heads * d), generator=g, device=dev)
+    x = qkv.clone().requires_grad_(True)
+
+    def forward(fn, a=qkv, t=tau):
+        with torch.no_grad():
+            return fn(a, t, heads)
+
+    def both(fn, leaf=x, t=tau, g_out=grad_out):
+        return torch.autograd.grad(fn(leaf, t, heads), leaf, g_out)[0]
+
+    exact = (forward(xca_reference, qkv.double(), tau.double()),
+             both(xca_reference, qkv.double().requires_grad_(True), tau.double(),
+                  grad_out.double()))
+    errs = {}
+    for name, fn in (("kernel", xcit_xca), ("twin", xca_reference)):
+        out, grad = forward(fn), both(fn)
+        torch.cuda.synchronize()
+        errs[name] = (float((out - exact[0]).abs().max() / exact[0].abs().max()),
+                      max(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+                          for a, b in zip(grad.chunk(3, -1), exact[1].chunk(3, -1))))
+        del out, grad
+    del exact
+    out_err, grad_err = errs["kernel"]
+    if not (out_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError(f"xcit_xca disagrees with the float64 twin: output {out_err}, "
+                             f"gradients {grad_err} (the fp32 twin: {errs['twin']})")
+    nc = n * tokens * heads * d
+    row = {"tokens": tokens, "heads": heads, "head_dim": d, "blocks": blocks,
+           "out_err": out_err, "grad_err": grad_err, "twin_out_err": errs["twin"][0],
+           "twin_grad_err": errs["twin"][1],
+           "fwd_ms": _time_device_ms(lambda: forward(xcit_xca), 20)[0],
+           "ms": _time_device_ms(lambda: both(xcit_xca), 20)[0],
+           "plain_fwd_ms": _time_device_ms(lambda: forward(xca_reference), 10)[0],
+           "plain_ms": _time_device_ms(lambda: both(xca_reference), 10)[0],
+           "bound_fwd_ms": 1e3 * pass_seconds(nc, d, False),
+           "bound_ms": 1e3 * pass_seconds(nc, d, True)}
+    total = {k: row[k] * blocks for k in ("fwd_ms", "ms", "plain_fwd_ms", "plain_ms",
+                                          "bound_fwd_ms", "bound_ms")}
+    print(f"xcit_xca at b{n}, {tokens} tokens, {heads} heads of {d}: a block forward "
+          f"{row['fwd_ms']:.4f} ms (bound {row['bound_fwd_ms']:.4f}), forward and input gradient "
+          f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, bytes); twin {row['plain_fwd_ms']:.4f}"
+          f" / {row['plain_ms']:.4f} ms; against float64: output err {out_err:.2e}, gradient "
+          f"err {grad_err:.2e} (the fp32 twin's {errs['twin'][0]:.2e}, {errs['twin'][1]:.2e})")
+    print(f"xcit_xca, an XCiT-L12 pass at b{n} ({blocks} blocks): forward {total['fwd_ms']:.3f} ms "
+          f"(bound {total['bound_fwd_ms']:.3f}, {total['bound_fwd_ms'] / total['fwd_ms']:.1%}), "
+          f"with the input gradient {total['ms']:.3f} ms (bound {total['bound_ms']:.3f} ms, "
+          f"{total['bound_ms'] / total['ms']:.1%}); twin {total['plain_fwd_ms']:.3f} / "
+          f"{total['plain_ms']:.3f} ms; no single PyTorch call computes the function (the "
+          "norms over the tokens, the temperature and the channel softmax), so no library time")
+    return {"name": "xcit_xca", "route": "cuda",
+            "source": "dl_attack_on_imagenet_tpu_torch/csrc/xcit_xca.cu",
+            "replaces": None, "launches": 0, "backward_launches": 0, "max_abs_err": out_err,
+            "ms": total["ms"], "fwd_ms": total["fwd_ms"], "plain_ms": total["plain_ms"],
+            "plain_fwd_ms": total["plain_fwd_ms"], "bound_ms": total["bound_ms"],
+            "bound_fwd_ms": total["bound_fwd_ms"], "bound_by": "bytes", "library_ms": None,
+            "bound_share": total["bound_ms"] / total["ms"], "block": row}
+
+
 def check_small_against_cpu(dev) -> None:
     """The served path on the card against the plain path on the CPU, on the
     tiny victim at a small size (atol 1e-4 after 5 AdamW steps: cuDNN and
@@ -883,7 +966,7 @@ def print_device_breakdown(mode: str, fn, wall_s: float, top: int = 5) -> None:
         return
     kernels.sort(key=lambda row: -row[1])
     ours = []
-    for name in ("fused_perturb", "fused_adamw_project", "swin_window_attention"):
+    for name in ("fused_perturb", "fused_adamw_project", "swin_window_attention", "xcit_xca"):
         ms = sum(ms for key, ms, _ in kernels if name in key)
         count = sum(c for key, _, c in kernels if name in key)
         each = f", {ms / count:.4f} ms a launch in place x{count}" if count else ""
@@ -902,12 +985,14 @@ def _zero_counts() -> None:
         convnext_dwconv,
         resnet_epilogue,
         swin_window_attention,
+        xcit_xca,
     )
 
     fused_perturb.launches = fused_adamw_project.launches = 0
     swin_window_attention.launches = swin_window_attention.backward_launches = 0
     resnet_epilogue.launches = resnet_epilogue.backward_launches = 0
     convnext_dwconv.launches = convnext_dwconv.backward_launches = 0
+    xcit_xca.launches = xcit_xca.backward_launches = 0
 
 
 def _serve_mode(run, images, victim, label: str, budget: bool) -> int:
@@ -1130,6 +1215,15 @@ def serve_convnext(dev, n: int = 64, steps: int = 30, blocks: int = 36) -> tuple
     from dl_attack_on_imagenet_tpu_torch.ops.kernels import convnext_dwconv
 
     return _serve_cell(dev, "convnext_b", convnext_dwconv, blocks, n, steps)
+
+
+def serve_xcit(dev, n: int = 64, steps: int = 30, blocks: int = 12) -> tuple:
+    """``_serve_cell`` on XCiT-L12: the XCA kernel once a block each way,
+    the path of the ``xcit_l12-fp32.attack-sup`` cell. (The keyword
+    arguments shrink the run for a rehearsal.)"""
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import xcit_xca
+
+    return _serve_cell(dev, "xcit_l12", xcit_xca, blocks, n, steps)
 
 
 def _check_trained(name: str, d, v, eps: float) -> None:
@@ -3488,7 +3582,8 @@ def main() -> None:
                timed("fused_adamw_project check", check_fused_adamw_project, dev),
                timed("swin_window_attention check", check_swin_window_attention, dev),
                timed("resnet_epilogue check", check_resnet_epilogue, dev),
-               timed("convnext_dwconv check", check_convnext_dwconv, dev)]
+               timed("convnext_dwconv check", check_convnext_dwconv, dev),
+               timed("xcit_xca check", check_xcit_xca, dev)]
     timed("small-size checks", lambda: (check_small_against_cpu(dev),
                                         check_train_small_against_cpu(dev),
                                         check_families_against_cpu(dev)))
@@ -3505,6 +3600,9 @@ def main() -> None:
     kernels[0]["launches"] += perturb
     perturb, kernels[4]["launches"], kernels[4]["backward_launches"] = timed(
         "convnext_b", serve_convnext, dev)
+    kernels[0]["launches"] += perturb
+    perturb, kernels[5]["launches"], kernels[5]["backward_launches"] = timed(
+        "xcit_l12", serve_xcit, dev)
     kernels[0]["launches"] += perturb
     with tempfile.TemporaryDirectory() as root:
         for name, phase in (("demo experiment", demo_experiment),

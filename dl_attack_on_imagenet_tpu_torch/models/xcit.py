@@ -16,6 +16,9 @@ El-Nouby et al. 2021, "XCiT: Cross-Covariance Image Transformers"
   l2-normalized over the N tokens, channel by channel (``F.normalize``,
   eps 1e-12); A = softmax(τ_h q̂ k̂ᵀ) is d x d a head, with a learned
   temperature τ a head; each token's output is A v_n, then the projection.
+  On the card XCA's core, from the qkv Linear's output to the proj's
+  input, is the port's kernel (``ops.kernels.xcit_xca``), forward and input
+  gradient; on the CPU its twin ``xca_reference`` runs timm's operations.
   LPI is a 3x3 depthwise convolution (a bias), GELU, BatchNorm and a second
   3x3 depthwise convolution on the tokens as a map. The MLP is C -> 4C ->
   C with the exact GELU.
@@ -65,6 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import kernels
 from ..utils.profiling import annotate
 from .layers import Conv2d, Linear, resolve_dtype
 from .vit import GELU, LayerNorm, attend
@@ -122,8 +126,23 @@ class PositionalEncodingFourier(nn.Module):
         return self.token_projection(pos.to(self.token_projection.weight.dtype).contiguous())
 
 
+def xca_reference(qkv: torch.Tensor, temperature: torch.Tensor, heads: int) -> torch.Tensor:
+    """XCA's core between its qkv and proj Linears, in timm's operations:
+    the plain twin of :func:`~..ops.kernels.xcit_xca`. ``qkv`` is the
+    (B, N, 3C) output of the qkv Linear; returns the (B, N, C) input of the
+    projection."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    # (3, B, heads, d, N): each head's channels over the tokens.
+    q, k, v = qkv.reshape(b, n, 3, heads, c // heads).permute(2, 0, 3, 4, 1)
+    q, k = F.normalize(q, dim=-1), F.normalize(k, dim=-1)
+    attn = torch.softmax((q @ k.transpose(-2, -1)) * temperature, dim=-1)
+    return (attn @ v).permute(0, 3, 1, 2).reshape(b, n, c)
+
+
 class XCA(nn.Module):
-    """Cross-covariance attention over (B, N, C) rows (timm's ``XCA``)."""
+    """Cross-covariance attention over (B, N, C) rows (timm's ``XCA``): on
+    the card its core is the port's kernel, elsewhere the plain twin."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -133,13 +152,9 @@ class XCA(nn.Module):
         self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        # (3, B, heads, d, N): each head's channels over the tokens.
-        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads).permute(
-            2, 0, 3, 4, 1)
-        q, k = F.normalize(q, dim=-1), F.normalize(k, dim=-1)
-        attn = torch.softmax((q @ k.transpose(-2, -1)) * self.temperature, dim=-1)
-        return self.proj((attn @ v).permute(0, 3, 1, 2).reshape(b, n, c))
+        qkv = self.qkv(x)
+        core = kernels.xcit_xca if qkv.is_cuda else xca_reference
+        return self.proj(core(qkv, self.temperature, self.num_heads))
 
 
 class LPI(nn.Module):

@@ -8,13 +8,16 @@ gradient) replaces none: the JAX package has no Swin; nor does
 after a convolution, forward and input gradient), which XLA fuses on the
 TPU; nor does ``convnext_dwconv`` (ConvNeXt's 7x7 depthwise convolution,
 forward and input gradient with the residual's gradient summed in): the
-JAX package has no ConvNeXt. Their CUDA sources are ``csrc/<name>.cu``. On
-a CUDA tensor a wrapper launches its kernel or raises; only tensors on the
-CPU take the plain twin. The Swin, ResNet and ConvNeXt wrappers take CUDA
-tensors only: each twin is the model's own path
-(``models.swin.window_attention_reference``, the ResNet's ``bn`` -> ``+``
--> ``relu`` modules, :func:`convnext_dwconv_reference`), and the model
-picks one or the other by what its call observes.
+JAX package has no ConvNeXt; nor does ``xcit_xca`` (the core of XCiT's
+cross-covariance attention, from the qkv Linear's output to the proj
+Linear's input, forward and input gradient): the JAX package has no XCiT.
+Their CUDA sources are ``csrc/<name>.cu``. On a CUDA tensor a wrapper
+launches its kernel or raises; only tensors on the CPU take the plain twin.
+The Swin, ResNet, ConvNeXt and XCiT wrappers take CUDA tensors only: each
+twin is the model's own path (``models.swin.window_attention_reference``,
+the ResNet's ``bn`` -> ``+`` -> ``relu`` modules,
+:func:`convnext_dwconv_reference`, ``models.xcit.xca_reference``), and the
+model picks one or the other by what its call observes.
 """
 
 from __future__ import annotations
@@ -662,3 +665,119 @@ def convnext_dwconv(z: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, s
 
 convnext_dwconv.launches = 0
 convnext_dwconv.backward_launches = 0
+
+
+# Head dims the XCA kernel is built for: XCiT-L12's (16 heads of 48) and the
+# small test XCiT's (4 heads of 16).
+XCIT_XCA_HEAD_DIMS = (48, 16)
+_XCA_FNS = {}
+
+
+def _bind_xca():
+    lib = native.load("xcit_xca")
+    fns = _XCA_FNS.get(lib)
+    if fns is None:
+        fwd, bwd = lib.xcit_xca_forward_f32, lib.xcit_xca_backward_f32
+        fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fwd.restype = bwd.restype = ctypes.c_int
+        fns = _XCA_FNS[lib] = (fwd, bwd)
+    return fns
+
+
+def _launch_xca(backward: bool, pointers, qkv: torch.Tensor, heads: int) -> None:
+    """One launch of the forward or the backward over ``qkv``'s (B, N, 3C)
+    rows, on its device and current stream."""
+    b, n, c3 = qkv.shape
+    device = qkv.get_device()
+    args = (*pointers, b, n, heads, c3 // (3 * heads))
+    fn = _bind_xca()[1 if backward else 0]
+    if device == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    if err:
+        raise RuntimeError(f"xcit_xca: kernel launch failed with CUDA error {err}")
+
+
+class _XCiTXCA(torch.autograd.Function):
+    """The kernel's forward, and its backward for qkv's gradient; the
+    forward saves qkv and, a head, Ŝ = q̂ k̂ᵀ and the norms of q and k
+    (d² + 2d floats), not q̂, k̂ or the softmax."""
+
+    @staticmethod
+    def forward(ctx, qkv, temperature, heads):
+        b, n, c3 = qkv.shape
+        d = c3 // (3 * heads)
+        out = qkv.new_empty((b, n, c3 // 3))
+        saved = qkv.new_empty((b, heads, d * d + 2 * d))
+        if out.numel():
+            _launch_xca(False, (qkv.data_ptr(), temperature.data_ptr(), out.data_ptr(),
+                                saved.data_ptr()), qkv, heads)
+            xcit_xca.launches += 1
+        ctx.save_for_backward(qkv, temperature, saved)
+        ctx.heads = heads
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        qkv, temperature, saved = ctx.saved_tensors
+        grad = grad.contiguous()
+        if grad.data_ptr() % 16:
+            grad = grad.clone()
+        dqkv = torch.empty_like(qkv)
+        if dqkv.numel():
+            _launch_xca(True, (qkv.data_ptr(), temperature.data_ptr(), saved.data_ptr(),
+                               grad.data_ptr(), dqkv.data_ptr()), qkv, ctx.heads)
+            xcit_xca.backward_launches += 1
+        return dqkv, None, None
+
+
+def xcit_xca(qkv: torch.Tensor, temperature: torch.Tensor, heads: int) -> torch.Tensor:
+    """The core of an XCiT block's cross-covariance attention, between its
+    qkv and proj Linears.
+
+    Args:
+      qkv: (B, N, 3C) output of the qkv Linear, its channels q, k, v, each
+        heads x head dim.
+      temperature: the ``heads`` temperatures τ (timm's (heads, 1, 1)).
+
+    Returns the (B, N, C) input of the proj Linear: in each image and head,
+    with q, k and v the head's channels over the tokens,
+    ``softmax(τ q̂ k̂ᵀ) v`` in token-row order, q̂ and k̂ l2-normalized over
+    the tokens as ``F.normalize`` does (eps 1e-12), the softmax over the last
+    axis; :func:`~..models.xcit.xca_reference` computes it on the CPU. The
+    kernel does it all, forward and qkv's gradient; qkv must be contiguous
+    float32, 16-byte aligned, and the temperature float32 on qkv's CUDA
+    device; the temperature may not require a gradient while autograd
+    records (the kernel gives it none). Each forward launch adds one to
+    ``xcit_xca.launches``, each backward to ``xcit_xca.backward_launches``;
+    an empty batch launches nothing. Only head dims in
+    ``XCIT_XCA_HEAD_DIMS`` are taken.
+    """
+    if qkv.dim() != 3 or heads < 1 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"xcit_xca: qkv must be (B, N, 3 x {heads} heads x head dim), got "
+                         f"{tuple(qkv.shape)}")
+    head_dim = qkv.shape[-1] // (3 * heads)
+    if head_dim not in XCIT_XCA_HEAD_DIMS:
+        raise ValueError(f"xcit_xca: no kernel for head dim {head_dim}; it must be one of "
+                         f"{XCIT_XCA_HEAD_DIMS}")
+    if temperature.numel() != heads:
+        raise ValueError(f"xcit_xca: {temperature.numel()} temperatures for {heads} heads")
+    if temperature.requires_grad and torch.is_grad_enabled():
+        raise ValueError("xcit_xca: the kernel gives the temperature no gradient; freeze it "
+                         "(create_model does) or run without autograd")
+    if not (qkv.dtype == temperature.dtype == torch.float32):
+        raise TypeError("xcit_xca: the kernel takes float32 only")
+    if not (qkv.is_contiguous() and temperature.is_contiguous()) or qkv.data_ptr() % 16:
+        raise ValueError("xcit_xca: the kernel takes contiguous tensors, qkv 16-byte aligned")
+    if not (qkv.is_cuda and temperature.device == qkv.device):
+        raise ValueError("xcit_xca: qkv and the temperature must both be on one CUDA device "
+                         "(the CPU takes models.xcit.xca_reference)")
+    return _XCiTXCA.apply(qkv, temperature, heads)
+
+
+xcit_xca.launches = 0
+xcit_xca.backward_launches = 0

@@ -23,7 +23,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / ".kernel_build"
 SOURCES = ("fused_perturb", "fused_adamw_project", "swin_window_attention", "resnet_epilogue",
-           "convnext_dwconv")
+           "convnext_dwconv", "xcit_xca")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

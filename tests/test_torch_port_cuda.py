@@ -32,7 +32,12 @@ relative l2; h's gradient contiguous and in the channels_last strides a
 block hands it back in), and its launches: 36 forwards and 36 backwards a
 ConvNeXt-B pass, none for an empty batch; XCiT-L12 against the plain
 reference on the card, its device-timed spans against a whole pass, and
-its convolutions in contiguous NCHW. Every test here needs a GPU and skips
+its convolutions in contiguous NCHW; the XCiT XCA kernel against its plain
+twin at XCiT-L12's and xcit_mini's shapes with F.normalize's eps branch
+(output within 1e-5 of its largest value, each of dq, dk, dv within 1e-4 in
+relative l2), and its launches: 12 forwards and 12 backwards an XCiT-L12
+pass, xcit_mini's blocks too, none for an empty batch, and an XCA sublayer
+running no kernel of the plain path. Every test here needs a GPU and skips
 without one.
 
 This file imports neither JAX nor the JAX package (the grid's tests take
@@ -1566,3 +1571,126 @@ def test_xcit_convolutions_take_contiguous_nchw_on_the_card(cuda):
     names = _device_kernels(pass_)
     print("xcit_l12 b8 kernels:", Counter(n[:90] for n in names).most_common(40))
     assert not [n for n in names if "nhwcToNchw" in n or "nchwToNhwc" in n]
+
+
+# (batch, tokens, heads, head dim): XCiT-L12's blocks at b8, xcit_mini's at
+# 64² (a 4x4 token map), one and two tokens, and tokens that fill no chunk.
+XCIT_XCA_SHAPES = [(8, 196, 16, 48), (2, 16, 4, 16), (2, 1, 2, 48), (2, 2, 2, 48),
+                   (3, 45, 2, 16)]
+
+
+def _xca_inputs(dev, b, n, heads, d, tau_scale):
+    """q, k, v and the output's gradient of unit scale; a temperature a head
+    around ``tau_scale``; q's channel 3 and k's channel 5 of head 0 and k's
+    channel 3 of the last head zero over every token (``F.normalize``'s
+    eps branch). Returns (qkv, temperature, grad_out, the zero columns)."""
+    g = torch.Generator(device=dev).manual_seed(n + heads + d)
+    c = heads * d
+    qkv = torch.randn((b, n, 3 * c), generator=g, device=dev)
+    zero = [3, c + 5, c + (heads - 1) * d + 3]
+    qkv[..., zero] = 0
+    temperature = tau_scale * (1 + 0.1 * torch.randn((heads, 1, 1), generator=g, device=dev))
+    return qkv, temperature, torch.randn((b, n, c), generator=g, device=dev), zero
+
+
+@pytest.mark.parametrize("tau_scale", [1.0, 20.0])
+@pytest.mark.parametrize("b,n,heads,d", XCIT_XCA_SHAPES)
+def test_xcit_xca_matches_its_twin_on_the_card(cuda, b, n, heads, d, tau_scale):
+    # The temperature as the port initializes it (1) and as the benchmark
+    # draws it (20), a little apart from head to head. The output within
+    # 1e-5 of its largest value, and the gradients of q, k and v each within
+    # 1e-4 in relative l2, the zero channels' (of order 1e12: dq̂ / eps)
+    # apart from the rest: the kernel sums the Gram of q and k and divides by
+    # the norms where the twin normalizes first, and sums every product in
+    # another order, so they part by fp32 rounding, which the temperature
+    # scales in the scores. A single token's l2 normalization is its sign,
+    # so there the gradients of q and k vanish: the twin's two terms cancel
+    # exactly and the kernel's to rounding, so only their zero channels and
+    # v's gradient are compared. One launch each way.
+    from dl_attack_on_imagenet_tpu_torch.models.xcit import xca_reference
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import xcit_xca
+
+    qkv, temperature, grad_out, zero = _xca_inputs(cuda, b, n, heads, d, tau_scale)
+    counts = lambda: (xcit_xca.launches, xcit_xca.backward_launches)
+    before = counts()
+    results = []
+    for fn in (xcit_xca, xca_reference):
+        x = qkv.clone().requires_grad_(True)
+        out = fn(x, temperature, heads)
+        (grad,) = torch.autograd.grad(out, x, grad_out)
+        results.append((out.detach(), grad))
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    (out, grad), (want, want_grad) = results
+    assert torch.isfinite(out).all() and torch.isfinite(grad).all()
+    out_err = float((out - want).abs().max() / want.abs().max())
+    rest = torch.ones(3 * heads * d, dtype=torch.bool, device=cuda)
+    rest[zero] = False
+    rel = lambda a, w: float(torch.linalg.vector_norm(a - w) / torch.linalg.vector_norm(w))
+    grad_errs = [rel(a, w) for a, w in zip(grad[..., rest].chunk(3, dim=-1),
+                                           want_grad[..., rest].chunk(3, dim=-1))]
+    zero_err = rel(grad[..., zero], want_grad[..., zero])
+    print(f"xcit_xca b{b} n{n} {heads}x{d} tau {tau_scale}: output {out_err:.2e}, dq dk dv "
+          f"{grad_errs}, zero channels {zero_err:.2e}")
+    if n == 1:
+        grad_errs = grad_errs[2:]
+    assert out_err <= 1e-5 and max(grad_errs) <= 1e-4 and zero_err <= 1e-4, (
+        out_err, grad_errs, zero_err)
+
+
+@pytest.mark.parametrize("name,size,blocks", [("xcit_l12", 224, 12), ("xcit_mini", 64, 2)])
+def test_every_xcit_block_launches_the_kernel_on_the_card(cuda, name, size, blocks):
+    # A forward and input gradient launch the kernel once each way a block;
+    # a forward without autograd only forwards.
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import xcit_xca
+
+    victim = create_model(name, device=cuda, seed=0)
+    x = torch.rand((2, size, size, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    counts = lambda: (xcit_xca.launches, xcit_xca.backward_launches)
+    before = counts()
+    xt = x.clone().requires_grad_(True)
+    torch.autograd.grad(victim(xt).square().sum(), xt)
+    assert counts() == (before[0] + blocks, before[1] + blocks)
+    with torch.no_grad():
+        victim(x)
+    assert counts() == (before[0] + 2 * blocks, before[1] + blocks)
+
+
+def test_xcit_xca_takes_an_empty_batch_on_the_card(cuda):
+    from dl_attack_on_imagenet_tpu_torch.ops.kernels import xcit_xca
+
+    qkv = torch.zeros((0, 196, 3 * 768), device=cuda, requires_grad=True)
+    temperature = torch.ones((16, 1, 1), device=cuda)
+    counts = lambda: (xcit_xca.launches, xcit_xca.backward_launches)
+    before = counts()
+    out = xcit_xca(qkv, temperature, 16)
+    (grad,) = torch.autograd.grad(out.sum(), qkv)
+    assert out.shape == (0, 196, 768) and grad.shape == qkv.shape
+    assert counts() == before
+
+
+def test_an_xca_sublayer_runs_its_gemms_and_the_kernel_alone_on_the_card(cuda):
+    # One XCiT-L12 XCA sublayer (the qkv Linear, the core, the proj Linear)
+    # forward and input gradient at b8: the core is the kernel's two
+    # launches, and no normalization, softmax, batched product or permute
+    # copy of the plain path runs (cuBLAS's own kernels of the two Linears,
+    # a split-K reduction among them, aside). The kernels are printed, for
+    # the record.
+    from collections import Counter
+
+    victim = create_model("xcit_l12", device=cuda, seed=0)
+    attn = victim.net.blocks[0].attn
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((8, 196, 768), generator=g).to(cuda).requires_grad_(True)
+    grad_out = torch.randn((8, 196, 768), generator=g).to(cuda)
+
+    def pass_():
+        torch.autograd.grad(attn(x), x, grad_out)
+
+    pass_()
+    names = _device_kernels(pass_)
+    print("xcit_l12 XCA sublayer b8 kernels:", Counter(n[:90] for n in names).most_common(20))
+    assert len([n for n in names if "xcit_xca_forward_kernel" in n]) == 1
+    assert len([n for n in names if "xcit_xca_backward_kernel" in n]) == 1
+    assert not [n for n in names if "cublas" not in n and any(
+        w in n.lower() for w in ("softmax", "norm", "reduce", "copy", "batched"))]

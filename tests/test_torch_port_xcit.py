@@ -7,8 +7,11 @@ reach the logits through LayerNorm's eps alone; XCiT-L12's size and names
 against the benchmark's ``param_specs``; the two reference copies against
 each other; the loader of a timm-named ``state_dict``; the refusal of bf16;
 the port's own random init; ``cli.main``'s build; the victim's spans (their
-counts a pass, nothing without a profiler); the stream's layout; and
-ViT's fp32 logits beside the layers XCiT shares with it.
+counts a pass, nothing without a profiler); the stream's layout; ViT's
+fp32 logits beside the layers XCiT shares with it; and XCA's core: its
+plain twin against timm's operations, the kernel wrapper's refusals, and
+the card's path (each block's core through the wrapper) taken by a tensor
+that says it is on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch, from the repository's root:
@@ -28,7 +31,8 @@ from dl_attack_on_imagenet_tpu_torch.cli import main as cli_main
 from dl_attack_on_imagenet_tpu_torch.cli._victim import build_victim
 from dl_attack_on_imagenet_tpu_torch.models import create_model
 from dl_attack_on_imagenet_tpu_torch.models.convert import load_torch_checkpoint
-from dl_attack_on_imagenet_tpu_torch.models.xcit import XCiT, xcit_l12
+from dl_attack_on_imagenet_tpu_torch.models.xcit import XCiT, xca_reference, xcit_l12
+from dl_attack_on_imagenet_tpu_torch.ops import kernels
 from dl_attack_on_imagenet_tpu_torch.utils import profiling
 from h100bench.reference import xcit as bench_xcit
 
@@ -343,3 +347,118 @@ def test_vit_fp32_logits_are_bit_identical_beside_the_shared_layers():
 
     with torch.no_grad():
         assert torch.equal(victim(x), plain(x))
+
+
+def timm_xca_core(qkv, temperature, heads):
+    """timm's ``XCA.forward`` between ``self.qkv`` and ``self.proj``, as
+    timm writes it (dropout the identity)."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    qkv = qkv.reshape(b, n, 3, heads, c // heads).permute(2, 0, 3, 4, 1)
+    q, k, v = qkv.unbind(0)
+    q = torch.nn.functional.normalize(q, dim=-1)
+    k = torch.nn.functional.normalize(k, dim=-1)
+    attn = (q @ k.transpose(-2, -1)) * temperature
+    attn = attn.softmax(dim=-1)
+    return (attn @ v).permute(0, 3, 1, 2).reshape(b, n, c)
+
+
+@pytest.mark.parametrize("heads,tokens", [(4, 16), (16, 196)])
+def test_the_xca_twin_is_timms_core(heads, tokens):
+    """``xca_reference`` computes timm's operations bit for bit, forward and
+    qkv's gradient, with a zero channel (``F.normalize``'s eps branch); the
+    block's XCA on the CPU is its projection of the twin."""
+    g = torch.Generator().manual_seed(heads)
+    c = 48 * heads if heads == 16 else 16 * heads
+    qkv = torch.randn((2, tokens, 3 * c), generator=g)
+    qkv[..., 3] = 0
+    temperature = 1 + torch.rand((heads, 1, 1), generator=g)
+    grad_out = torch.randn((2, tokens, c), generator=g)
+    out = []
+    for fn in (xca_reference, timm_xca_core):
+        x = qkv.clone().requires_grad_(True)
+        y = fn(x, temperature, heads)
+        out.append((y.detach(), torch.autograd.grad(y, x, grad_out)[0]))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert torch.isfinite(out[0][1]).all()
+    attn = xcit_l12().blocks[0].attn if heads == 16 else XCiT(64, 2, heads).blocks[0].attn
+    x = torch.randn((2, tokens, c), generator=g)
+    with torch.no_grad():
+        assert torch.equal(attn(x), attn.proj(xca_reference(attn.qkv(x), attn.temperature,
+                                                            heads)))
+
+
+def _xca_args(case):
+    """(qkv, temperature, heads) for a refusal ``case``: each is what the
+    kernel takes but for the one thing the case names."""
+    heads, d = 4, 16
+    qkv = torch.randn((2, 16, 3 * heads * d))
+    temperature = torch.ones((heads, 1, 1))
+    if case == "head_dim":
+        return qkv, torch.ones((2, 1, 1)), 2  # heads of 32
+    if case == "shape":
+        return qkv[0], temperature, heads
+    if case == "temperatures":
+        return qkv, torch.ones((heads + 1, 1, 1)), heads
+    if case == "temperature_grad":
+        return qkv, temperature.requires_grad_(True), heads
+    if case == "dtype":
+        return qkv.double(), temperature.double(), heads
+    if case == "non_contiguous":
+        return torch.randn((2, 3 * heads * d, 16)).transpose(1, 2), temperature, heads
+    if case == "unaligned":
+        return torch.randn(2 * 16 * 3 * heads * d + 1)[1:].view(2, 16, -1), temperature, heads
+    return qkv, temperature, heads  # "cpu": all it takes, on the CPU
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("head_dim", ValueError, "no kernel for head dim 32"),
+    ("shape", ValueError, "must be"),
+    ("temperatures", ValueError, "temperatures for"),
+    ("temperature_grad", ValueError, "no gradient"),
+    ("dtype", TypeError, "float32 only"),
+    ("non_contiguous", ValueError, "contiguous"),
+    ("unaligned", ValueError, "16-byte aligned"),
+    ("cpu", ValueError, "CUDA device"),
+])
+def test_the_xca_wrapper_refuses_what_the_kernel_does_not_take(case, error, match):
+    with pytest.raises(error, match=match):
+        kernels.xcit_xca(*_xca_args(case))
+
+
+def test_the_temperature_may_need_a_gradient_without_autograd():
+    """A temperature that requires a gradient passes the wrapper's check
+    where autograd records nothing; the CPU tensor is then refused for its
+    device alone."""
+    qkv, temperature, heads = _xca_args("temperature_grad")
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
+        kernels.xcit_xca(qkv, temperature, heads)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on CUDA, so that a pass on it takes the
+    card's path; every tensor computed from it is one too."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_a_card_tensor_takes_the_kernel_in_every_block(mini, monkeypatch):
+    """Each block's XCA hands the kernel wrapper its qkv rows and its
+    temperature on the card (here the twin stands in for the launch), once a
+    block a pass, with the logits of the CPU's path."""
+    params, victim = mini
+    calls = []
+
+    def launch(qkv, temperature, heads):
+        calls.append((tuple(qkv.shape), heads, qkv.is_contiguous()))
+        return xca_reference(qkv, temperature, heads)
+
+    monkeypatch.setattr(kernels, "xcit_xca", launch)
+    x = images()
+    want = victim(x)
+    assert calls == []
+    got = victim(x.as_subclass(_OnCard))
+    assert calls == [((2, 16, 192), 4, True)] * MINI["depth"]
+    assert torch.equal(got.as_subclass(torch.Tensor), want)
